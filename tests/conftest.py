@@ -21,3 +21,9 @@ import pytest
 def _clear_jax_caches_per_module():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; the test skips itself (inside "
+        "the test, never at collection) when torch sees no CUDA device")
