@@ -4,23 +4,39 @@
     python3 chip_smoke.py        # from the repository root; needs one card
 
 Phases (any failure raises and exits non-zero):
-  1. the card's name and power limit; build kernel K1 (``ellpack_relax``)
-     from the repository's CUDA source with nvcc, print the build time;
-  2. K1 against its plain torch version on the card, bit for bit, at edge
-     cases (K = 1, non-power-of-two K, K > 32, +inf rows, weight ties) and
-     at the main path's shape;
-  3. the main path: ``repro_torch.make_engine(relax_backend="ellpack",
-     batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY
-     stream at 2^20 vertices and 2^23 edges (queries every window/10),
-     with K1's launch counter reset just before and read just after; the
-     final snapshot is checked against scipy's Dijkstra on the allocator's
-     live edges (check_tree's tolerances) plus a vectorized parent-tightness
-     check; K1 and its plain version are then timed on the final ELL block,
-     the host control plane is timed alone, and the run is repeated under
-     torch.profiler for its device time;
-  4. the same recipe at 2^16 vertices twice, with K1 and with the plain
-     version: identical (dist, parent, stats) at every query;
-  5. the card line, a JSON ``kernels`` line, and as the last line
+  1. the card's name and power limit; build kernels K1 (``ellpack_relax``),
+     K2 (``fused_sliced_relax``) and K3 (``gathered_rows_relax``) from the
+     repository's CUDA sources, one nvcc per source, all started together;
+  2. each kernel against its plain torch version on the card, bit for bit,
+     at edge cases (K1: K = 1, non-power-of-two K, K > 32, +inf rows,
+     ties; K2: ragged run groups, empty and zero-length overflow lanes,
+     all-+inf rows, ties across the lanes, inactive sources, rows without
+     entries; K3: ties, an empty and an all-masked edge list);
+  3. the dense-ELL path: ``make_engine(relax_backend="ellpack",
+     batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
+     at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
+     reset just before and read just after; final snapshot against scipy's
+     Dijkstra; K1 against its plain version and timed on the final block;
+     the host control plane (allocator + ELL planner) replayed alone; the
+     path re-run under torch.profiler for its device time;
+  4. the hub path: ``relax_backend="auto", sliced_fused=True`` over the
+     RMAT(20) stream of the same recipe (edge factor 8, seed 7; the dense
+     ELL block falls back to the sliced layout at its first rebuild), K1
+     and K2 counts reset just before and read just after; Dijkstra check;
+     K2 against its plain version and timed on the final layout; the host
+     control plane (allocator + sliced planner) replayed alone; the path
+     re-run under torch.profiler for its device time;
+  5. at 2^16 on the RMAT recipe: auto + K2, sliced on K1 per run of slices,
+     sliced plain and segment engines identical at every query;
+  6. the sparse frontier: the localized stream at 2^20 (``rmat(20, 4,
+     seed=11)`` ingested first, then 48 batches of 8 fresh edges inside a
+     random 1k window) through ``frontier_mode="sparse",
+     frontier_kernel=True`` against a dense segment engine, K3's count reset
+     just before the batches and read just after; K3 against its plain
+     version at the shapes that path gave it; then the 2^16 RMAT
+     sliding-window stream (DEL epochs too) sparse on K3 against sparse on
+     the plain version;
+  7. the card line, a JSON ``kernels`` line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing any result when torch sees no CUDA
@@ -53,13 +69,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def stream(log2_n: int):
-    """The main-path recipe at 2^log2_n vertices: ER graph with edge factor
-    8, sliding window 0.3·E with delta 0.3, a QUERY every window/10."""
+def stream(log2_n: int, graph: str):
+    """The recipe at 2^log2_n vertices: an ER ("er") or RMAT ("rmat")
+    graph with edge factor 8 and seed 7, sliding window 0.3·E with delta
+    0.3, a QUERY every window/10; source = the top in-degree vertex."""
     from repro_torch.core import events as ev
     from repro_torch.graphs import generators, window as win
     n = 1 << log2_n
-    n, src, dst, w = generators.erdos_renyi(n, EDGE_FACTOR * n, seed=SEED)
+    if graph == "er":
+        n, src, dst, w = generators.erdos_renyi(n, EDGE_FACTOR * n,
+                                                seed=SEED)
+    else:
+        n, src, dst, w = generators.rmat(log2_n, EDGE_FACTOR, seed=SEED)
     window = int(len(src) * WINDOW_FRAC)
     log = win.sliding_window_stream(src, dst, w, window=window, delta=DELTA,
                                     seed=0)
@@ -72,36 +93,53 @@ def engine(n: int, e: int, source: int, **knobs):
     import repro_torch
     return repro_torch.make_engine(
         num_vertices=n, edge_capacity=int(1.3 * e) + 64, source=source,
-        relax_backend="ellpack", batch_deletions=True, **knobs)
+        batch_deletions=True, **knobs)
 
 
-def control_plane_seconds(n: int, e: int, log) -> float:
+def topo_counts(log) -> tuple[int, int]:
+    return int((log.kind != 2).sum()), int((log.kind == 1).sum())
+
+
+def run_path(torch, eng, log, counters):
+    """Drive ``eng`` over ``log`` with the kernels' launch counts set to 0
+    just before and read just after; returns (wall s, query results,
+    launches per counter)."""
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = eng.ingest_log(log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, results, [c.launches for c in counters]
+
+
+def p50_ms(results) -> float:
+    return float(np.median([r.latency_s for r in results])) * 1e3
+
+
+def control_plane_seconds(e: int, log, planner, plan) -> float:
     """The host control plane alone: the same runs through a fresh slot
-    allocator and ELL planner (numpy, no device work), grouped as the
+    allocator and layout planner (numpy, no device work), grouped as the
     engine groups them under batch_deletions=True."""
     from repro_torch.core import events as ev
     from repro_torch.core import ingest
-    from repro_torch.core.backends.ellpack import EllPlanner
     alloc = ingest.make_allocator(int(1.3 * e) + 64)
-    planner = EllPlanner(n)
     t0 = time.perf_counter()
     for batch in log.runs():
         if batch.kind == ev.ADD:
-            plan = alloc.plan_adds(batch.src, batch.dst, batch.w)
-            if planner.plan_appends(plan.dst[plan.fresh]) is None:
+            p = alloc.plan_adds(batch.src, batch.dst, batch.w)
+            if plan(planner, p) is None:
                 planner.rebuild_host(*alloc.active_coo())
         elif batch.kind == ev.DEL:
             alloc.plan_dels(batch.src, batch.dst)
     return time.perf_counter() - t0
 
 
-def device_profile(torch, n: int, e: int, source: int, log):
-    """The main path driven again under torch.profiler (CUDA activity
-    only): total device time in seconds and the top device ops as
-    (name, seconds, count).  Device work is the same as in the timed run;
-    the profiler only slows the host."""
+def device_profile(torch, eng, log):
+    """``eng`` driven over ``log`` under torch.profiler (CUDA activity
+    only): total device time in seconds and the top device ops as (name,
+    seconds, count).  The profiler only slows the host."""
     from torch.profiler import ProfilerActivity, profile
-    eng = engine(n, e, source)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.ingest_log(log)
         torch.cuda.synchronize()
@@ -109,35 +147,6 @@ def device_profile(torch, n: int, e: int, source: int, log):
     total = sum(x.self_device_time_total for x in ops) / 1e6
     return total, [(x.key[:48], x.self_device_time_total / 1e6, x.count)
                    for x in ops[:5]]
-
-
-def k1_case(torch, seed: int, n: int, rows: int, k: int, ties: bool):
-    g = torch.Generator().manual_seed(seed)
-    if ties:
-        offers = torch.randint(0, 4, (n,), generator=g).float()
-        w = torch.randint(1, 4, (rows, k), generator=g).float()
-    else:
-        offers = 4 * torch.rand(n, generator=g)
-        w = 0.5 + 1.5 * torch.rand(rows, k, generator=g)
-    offers[torch.rand(n, generator=g) < 0.3] = float("inf")
-    idx = torch.randint(0, n, (rows, k), generator=g, dtype=torch.int32)
-    w[torch.rand(rows, k, generator=g) < 0.2] = float("inf")
-    w[0] = float("inf")                      # an all-tombstone row
-    return [t.cuda() for t in (offers, idx, w)]
-
-
-def k1_compare(torch, kernel, ref, offers, idx, w) -> float:
-    """Kernel vs plain version on the same inputs: +inf pattern and arg
-    must be equal, returns max |best difference| (must be 0)."""
-    kb, ka = kernel(offers, idx, w)
-    rb, ra = ref(offers, idx, w)
-    torch.cuda.synchronize()
-    assert torch.equal(torch.isinf(kb), torch.isinf(rb)), "K1 +inf pattern"
-    assert torch.equal(ka, ra), "K1 arg differs from the plain version"
-    fin = torch.isfinite(rb)
-    err = float((kb[fin] - rb[fin]).abs().max()) if bool(fin.any()) else 0.0
-    assert err == 0.0, f"K1 best differs by {err}"
-    return err
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -151,6 +160,39 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sync_us(torch, n: int) -> float:
+    """Host time of one ``bool(frontier.any())`` read at N = n."""
+    f = torch.rand(n, device="cuda") < 0.01
+    for _ in range(10):
+        bool(f.any())
+    t1 = time.perf_counter()
+    for _ in range(200):
+        bool(f.any())
+    return (time.perf_counter() - t1) / 200 * 1e6
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time of the work on this card: bytes over the memory rate
+    against f32 operations over the peak f32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def compare(torch, name, kernel_out, plain_out) -> float:
+    """Kernel vs plain version on the same inputs: +inf pattern and arg
+    equal, returns max |best difference|, which must be 0."""
+    (kb, ka), (rb, ra) = kernel_out, plain_out
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(kb), torch.isinf(rb)), f"{name} +inf"
+    assert torch.equal(ka, ra), f"{name} arg differs from the plain version"
+    fin = torch.isfinite(rb)
+    err = float((kb[fin] - rb[fin]).abs().max()) if bool(fin.any()) else 0.0
+    assert err == 0.0, f"{name} best differs by {err}"
+    return err
 
 
 def snapshot_check(n, source, src, dst, w, dist, parent, atol=1e-4):
@@ -182,129 +224,462 @@ def snapshot_check(n, source, src, dst, w, dist, parent, atol=1e-4):
     return int(reached.sum())
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
-        return 1
+def same_results(name, got, want) -> None:
+    assert len(got) == len(want) > 0, name
+    for a, b in zip(got, want):
+        assert np.array_equal(a.dist, b.dist), f"{name}: dist differs"
+        assert np.array_equal(a.parent, b.parent), f"{name}: parent differs"
+        assert a.epoch_stats == b.epoch_stats, f"{name}: stats differ"
+
+
+# ------------------------------------------------------- kernel edge cases --
+def k1_case(torch, seed: int, n: int, rows: int, k: int, ties: bool):
+    g = torch.Generator().manual_seed(seed)
+    if ties:
+        offers = torch.randint(0, 4, (n,), generator=g).float()
+        w = torch.randint(1, 4, (rows, k), generator=g).float()
+    else:
+        offers = 4 * torch.rand(n, generator=g)
+        w = 0.5 + 1.5 * torch.rand(rows, k, generator=g)
+    offers[torch.rand(n, generator=g) < 0.3] = float("inf")
+    idx = torch.randint(0, n, (rows, k), generator=g, dtype=torch.int32)
+    w[torch.rand(rows, k, generator=g) < 0.2] = float("inf")
+    w[0] = float("inf")                      # an all-tombstone row
+    return [t.cuda() for t in (offers, idx, w)]
+
+
+def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
+            active_frac=1.0, dead_frac=0.0):
+    """A random flat sliced layout + overflow lane on the card; ``ties``
+    draws integer offers and weights, ``dead_frac`` of the rows get no
+    live cell."""
+    from repro_torch.graphs import csr
+    rng = np.random.default_rng(seed)
+    L = slice_rows * sum(widths)
+    wpool = np.asarray([0.5, 1.0] if ties else rng.uniform(0.1, 2.0, 8),
+                       np.float32)
+    flat_idx = rng.integers(0, n, L).astype(np.int32)
+    flat_w = np.where(rng.random(L) < 0.6, rng.choice(wpool, L),
+                      np.inf).astype(np.float32)
+    _, rowk, base, _ = csr.sliced_geometry(list(widths), slice_rows)
+    for r in np.nonzero(rng.random(len(base)) < dead_frac)[0]:
+        flat_w[base[r]:base[r] + rowk[r]] = np.inf
+    osrc = rng.integers(0, n, ocap).astype(np.int32)
+    odst = rng.integers(0, n, ocap).astype(np.int32)
+    ow = np.where(rng.random(ocap) < 0.7, rng.choice(wpool, ocap),
+                  np.inf).astype(np.float32)
+    dist = np.where(rng.random(n) < 0.8, rng.uniform(0.0, 4.0, n),
+                    np.inf).astype(np.float32)
+    if ties:
+        dist = np.floor(dist)
+    active = rng.random(n) < active_frac
+    t = [torch.from_numpy(a).cuda() for a in
+         (dist, active, flat_idx, flat_w, osrc, odst, ow,
+          base.astype(np.int32), rowk)]
+    return t[:7], dict(widths=tuple(widths), slice_rows=slice_rows,
+                       base=t[7], rowk=t[8])
+
+
+def k2_check(torch, args, kw) -> float:
+    from repro_torch.kernels.relax.fused import fused_sliced_relax
+    from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
+    plain = fused_sliced_relax_ref(*args, widths=kw["widths"],
+                                   slice_rows=kw["slice_rows"])
+    return compare(torch, "K2", fused_sliced_relax(*args, **kw), plain)
+
+
+def k3_case(torch, seed, e, n, *, ties=False, mask_frac=0.7):
+    rng = np.random.default_rng(seed)
+    if ties:
+        wd = rng.integers(0, 3, e).astype(np.float32)
+        w = rng.integers(1, 3, e).astype(np.float32)
+    else:
+        wd = rng.uniform(0, 3, e).astype(np.float32)
+        w = rng.uniform(0.1, 1.0, e).astype(np.float32)
+    wd[rng.random(e) < 0.1] = np.inf
+    w[rng.random(e) < 0.1] = np.inf
+    src = rng.integers(0, n, e).astype(np.int32)
+    nbr = rng.integers(0, n, e).astype(np.int32)
+    mask = rng.random(e) < mask_frac
+    return [torch.from_numpy(a).cuda() for a in (wd, src, nbr, w, mask)]
+
+
+def k3_check(torch, args, num_rows) -> float:
+    from repro_torch.kernels.relax.gather import gathered_rows_relax
+    from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
+    return compare(torch, "K3", gathered_rows_relax(*args, num_rows=num_rows),
+                   gathered_rows_relax_ref(*args, num_rows=num_rows))
+
+
+def kernel_edge_cases(torch) -> None:
     from repro_torch.kernels.relax import relax as k1
     from repro_torch.kernels.relax.ref import ellpack_relax_ref
-
-    # ---- 1. card, build
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    built = k1.load()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    print(f"[1] K1 built in {built.seconds:.2f} s -> {built.path.name}; "
-          f"ptxas: {regs[:1]}")
-
-    # ---- 2. K1 vs plain version at edge cases and the main shape
     cases = [(50, 8, 1), (300, 256, 3), (5000, 4096, 8), (5000, 4096, 17),
              (64, 256, 32), (70000, 65536, 33), (1000, 512, 40),
              (1 << 20, 1 << 20, 32)]
     for i, (n, rows, k) in enumerate(cases):
         for ties in (False, True):
-            k1_compare(torch, k1.ellpack_relax, ellpack_relax_ref,
-                       *k1_case(torch, i, n, rows, k, ties))
+            args = k1_case(torch, i, n, rows, k, ties)
+            compare(torch, "K1", k1.ellpack_relax(*args),
+                    ellpack_relax_ref(*args))
     print(f"[2] K1 bit-identical to the plain version on {2 * len(cases)} "
           f"cases (K in {sorted({c[2] for c in cases})})")
 
-    # ---- 3. the main path at 2^20 vertices / 2^23 edges
+    k2_cases = [
+        ("ragged run groups", dict(widths=(2,) * 40, slice_rows=8, n=300,
+                                   ocap=16)),
+        ("mixed widths", dict(widths=(1, 1, 4, 4, 4, 2, 8), slice_rows=16,
+                              n=100, ocap=8)),
+        ("ties across lanes", dict(widths=(2, 2, 4, 4), slice_rows=16, n=60,
+                                   ocap=32, ties=True)),
+        ("inactive sources", dict(widths=(4, 32, 16, 2, 1, 8),
+                                  slice_rows=256, n=1500, ocap=4096,
+                                  ties=True, active_frac=0.5)),
+        ("rows with no entries", dict(widths=(8, 8, 2, 32), slice_rows=64,
+                                      n=200, ocap=64, dead_frac=0.5)),
+        ("all sources inactive", dict(widths=(2, 4), slice_rows=32, n=64,
+                                      ocap=16, active_frac=0.0)),
+        ("wide hub slices", dict(widths=(32,) * 8 + (1,) * 8,
+                                 slice_rows=256, n=4096, ocap=1 << 16)),
+    ]
+    for i, (_, c) in enumerate(k2_cases):
+        c = dict(c)
+        args, kw = k2_case(torch, i, c.pop("widths"), c.pop("slice_rows"),
+                           c.pop("n"), c.pop("ocap"), **c)
+        k2_check(torch, args, kw)
+        if i == 0:   # the same layout with a dead and a zero-length lane
+            dead = [*args[:6], torch.full_like(args[6], float("inf"))]
+            k2_check(torch, dead, kw)
+            z = torch.zeros(0, dtype=torch.int32, device="cuda")
+            k2_check(torch, [*args[:4], z, z, z.float()], kw)
+        if i == 2:   # all-+inf rows: every offer +inf
+            k2_check(torch, [torch.full_like(args[0], float("inf")),
+                             *args[1:]], kw)
+    print(f"[2] K2 bit-identical to the plain version on {len(k2_cases) + 3} "
+          f"cases ({', '.join(c[0] for c in k2_cases)}, a dead and a "
+          f"zero-length overflow lane, all-+inf offers)")
+
+    k3_cases = [(85, 40, False, 0.7), (300, 17, True, 1.0),
+                (64, 64, False, 0.0), (0, 12, False, 0.7),
+                (1 << 18, 1 << 16, True, 0.8), (1 << 20, 1 << 20, False, 0.9)]
+    for i, (e, n, ties, mask_frac) in enumerate(k3_cases):
+        k3_check(torch, k3_case(torch, i, e, n, ties=ties,
+                                mask_frac=mask_frac), n)
+    print(f"[2] K3 bit-identical to the plain version on {len(k3_cases)} "
+          f"cases (ties, an all-masked and an empty edge list, up to "
+          f"E = 2^20)")
+
+
+# ------------------------------------------------------------------ phases --
+def dense_ell_path(torch):
+    """Phase 3: the ER stream on the dense ELL block, every wave on K1."""
+    from repro_torch.core.backends.ellpack import EllPlanner
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.kernels.relax.ref import ellpack_relax_ref
     t0 = time.perf_counter()
-    n, e, source, log = stream(20)
-    n_topo = int((log.kind != 2).sum())
-    n_dels = int((log.kind == 1).sum())
-    print(f"[3] stream: n={n} edges={e} events={len(log)} (topology "
+    n, e, source, log = stream(20, "er")
+    n_topo, n_dels = topo_counts(log)
+    print(f"[3] ER stream: n={n} edges={e} events={len(log)} (topology "
           f"{n_topo}, dels {n_dels}) source={source}; built in "
           f"{time.perf_counter() - t0:.1f} s")
-    eng = engine(n, e, source)
-    lat: list[float] = []
-    k1.ellpack_relax.launches = 0
-    t0 = time.perf_counter()
-    eng.ingest_log(log, on_query=lambda r: lat.append(r.latency_s))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = k1.ellpack_relax.launches
-    assert launches > 0, "the main path never launched K1"
+    eng = engine(n, e, source, relax_backend="ellpack")
+    wall, res, (launches,) = run_path(torch, eng, log, [k1.ellpack_relax])
+    assert launches > 0, "the dense-ELL path never launched K1"
     ell = eng.backend.state
-    print(f"[3] main path: {wall:.2f} s, {n_topo / wall:.0f} topology "
-          f"events/s, {len(lat)} queries, query p50 "
-          f"{np.median(lat) * 1e3:.3f} ms, epochs {eng.n_epochs}, waves "
-          f"{eng.n_rounds}, messages {eng.n_messages}, K={ell.k} "
+    print(f"[3] dense-ELL path: {wall:.2f} s, {n_topo / wall:.0f} topology "
+          f"events/s, {len(res)} queries, query p50 {p50_ms(res):.3f} ms, "
+          f"epochs {eng.n_epochs}, waves {eng.n_rounds}, messages "
+          f"{eng.n_messages}, K={ell.k} "
           f"(rows {ell.rows}, rebuilds {eng.backend.planner.rebuilds}), "
           f"K1 launches {launches}")
     q = eng.query()
     reached = snapshot_check(n, source, *eng.alloc.active_coo(), q.dist,
                              q.parent)
     print(f"[3] final snapshot passes the Dijkstra check ({reached} reached)")
-
-    # per-wave host sync: one bool(frontier.any()) read per wave
-    f = torch.rand(n, device="cuda") < 0.01
-    for _ in range(10):
-        bool(f.any())
-    t1 = time.perf_counter()
-    for _ in range(200):
-        bool(f.any())
-    sync_us = (time.perf_counter() - t1) / 200 * 1e6
-    print(f"[3] host sync bool(frontier.any()) at N={n}: {sync_us:.1f} us; "
-          f"x {eng.n_rounds} waves = {sync_us * eng.n_rounds / 1e6:.3f} s "
-          f"of the {wall:.2f} s run")
-
-    # K1 at the main path's final shapes: offers = final distances
-    offers = eng.state.sssp.dist
-    nbr_idx, nbr_w = ell.nbr_idx, ell.nbr_w
-    err = k1_compare(torch, k1.ellpack_relax, ellpack_relax_ref, offers,
-                     nbr_idx, nbr_w)
+    offers, nbr_idx, nbr_w = eng.state.sssp.dist, ell.nbr_idx, ell.nbr_w
+    err = compare(torch, "K1", k1.ellpack_relax(offers, nbr_idx, nbr_w),
+                  ellpack_relax_ref(offers, nbr_idx, nbr_w))
     ms = cuda_ms(torch, lambda: k1.ellpack_relax(offers, nbr_idx, nbr_w), 50)
     plain_ms = cuda_ms(torch, lambda: ellpack_relax_ref(offers, nbr_idx,
                                                         nbr_w), 10)
     rows, k = nbr_idx.shape
-    nbytes = offers.numel() * 4 + rows * k * 8 + rows * 8
-    ops = 2 * rows * k
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[3] K1 at R={rows} K={k} N={offers.numel()}: {ms:.4f} ms "
-          f"(plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
-          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); K1 device time on the "
-          f"main path ~ {launches * ms / 1e3:.2f} s of {wall:.2f} s")
-    del eng, offers, nbr_idx, nbr_w, ell
-    host_s = control_plane_seconds(n, e, log)
+    # offers, every weight, the index of each finite-weight cell, best + arg
+    live = int(torch.isfinite(nbr_w).sum())
+    nbytes = offers.numel() * 4 + rows * k * 4 + live * 4 + rows * 8
+    bound_ms, bound_by = bound(nbytes, 2 * live)
+    print(f"[3] K1 at R={rows} K={k} N={offers.numel()} ({live} live "
+          f"cells): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at 3.35 TB/s); K1 "
+          f"device time on the path ~ {launches * ms / 1e3:.2f} s of "
+          f"{wall:.2f} s")
+    del eng, offers, nbr_idx, nbr_w, ell, q
+    host_s = control_plane_seconds(
+        e, log, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
     print(f"[3] host control plane alone (allocator + ELL planner, numpy): "
           f"{host_s:.2f} s of the {wall:.2f} s run")
-    dev_s, top = device_profile(torch, n, e, source, log)
+    dev_s, top = device_profile(torch, engine(n, e, source,
+                                              relax_backend="ellpack"), log)
     print(f"[3] device time (profiled re-run): {dev_s:.3f} s = "
           f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
           + "; ".join(f"{name} {sec:.3f} s x{cnt}" for name, sec, cnt in top))
+    return {"name": "ellpack_relax", "route": "cuda",
+            "source": "src/repro_torch/kernels/relax/csrc/ellpack_relax.cu",
+            "replaces": "src/repro/kernels/relax/relax.py:49",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "check": "bit-identical"}
 
-    # ---- 4. kernel vs plain engines at 2^16, identical at every query
-    n, e, source, log = stream(16)
+
+def hub_path(torch):
+    """Phase 4: the RMAT(20) stream under auto (dense ELL, then sliced),
+    every sliced wave on K2."""
+    from repro_torch.core.backends.sliced import SlicedEllPlanner
+    from repro_torch.graphs import csr
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
+    t0 = time.perf_counter()
+    n, e, source, log = stream(20, "rmat")
+    n_topo, n_dels = topo_counts(log)
+    print(f"[4] RMAT stream: n={n} edges={e} events={len(log)} (topology "
+          f"{n_topo}, dels {n_dels}) source={source}; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    knobs = dict(relax_backend="auto", sliced_fused=True)
+    eng = engine(n, e, source, **knobs)
+    wall, res, (l1, l2) = run_path(torch, eng, log,
+                                   [k1.ellpack_relax, k2.fused_sliced_relax])
+    assert l2 > 0, "the hub path never launched K2"
+    assert eng.backend_name == "sliced", "auto did not fall back to sliced"
+    pl, st = eng.backend.planner, eng.backend.state
+    runs = len(csr.width_runs(pl.widths))
+    print(f"[4] hub path (auto -> sliced, K2): {wall:.2f} s, "
+          f"{n_topo / wall:.0f} topology events/s, {len(res)} queries, query "
+          f"p50 {p50_ms(res):.3f} ms, epochs {eng.n_epochs}, waves "
+          f"{eng.n_rounds}, messages {eng.n_messages}, sliced rebuilds "
+          f"{pl.rebuilds}, spills {pl.spills}, cells {pl.cells}, ocap "
+          f"{pl.ocap}, max width {pl.max_width}, width runs {runs} (K1 "
+          f"launches per unfused wave); K2 launches {l2}, K1 launches {l1}")
+    q = eng.query()
+    reached = snapshot_check(n, source, *eng.alloc.active_coo(), q.dist,
+                             q.parent)
+    print(f"[4] final snapshot passes the Dijkstra check ({reached} reached)")
+
+    dist = eng.state.sssp.dist
+    active = torch.ones_like(dist, dtype=torch.bool)   # an unmasked pull wave
+    args = (dist, active, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow)
+    kw = dict(widths=tuple(pl.widths), slice_rows=pl.sr, base=st.base,
+              rowk=st.rowk)
+    err = k2_check(torch, args, kw)
+    ms = cuda_ms(torch, lambda: k2.fused_sliced_relax(*args, **kw), 50)
+    plain_ms = cuda_ms(torch, lambda: fused_sliced_relax_ref(
+        *args, widths=kw["widths"], slice_rows=pl.sr), 3)
+    live_l = int(torch.isfinite(st.flat_w).sum())
+    live_c = int(torch.isfinite(st.ow).sum())
+    nbytes = k2.wave_bytes(n, st.flat_w.numel(), live_l, st.ow.numel(),
+                           live_c, pl.rows)
+    bound_ms, bound_by = bound(nbytes, 2 * (live_l + live_c))
+    tpu_bytes = k2.fused_cost(pl.widths, pl.sr, n, pl.ocap)["bytes"]
+    print(f"[4] K2 at N={n} R={pl.rows} L={pl.cells} ({live_l} live) "
+          f"C={pl.ocap} ({live_c} live): {ms:.4f} "
+          f"ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; the TPU kernel's per-run "
+          f"model fused_cost charges {tpu_bytes / 1e9:.2f} GB); K2 device "
+          f"time on the path ~ {l2 * ms / 1e3:.2f} s of {wall:.2f} s")
+    del eng, dist, active, args, kw, st, q
+
+    host_s = control_plane_seconds(
+        e, log, SlicedEllPlanner(n),
+        lambda pl, p: pl.plan_appends(p.dst[p.fresh].astype(np.int64),
+                                      p.src[p.fresh], p.w[p.fresh]))
+    print(f"[4] host control plane alone (allocator + sliced planner, "
+          f"numpy): {host_s:.2f} s of the {wall:.2f} s run")
+    dev_s, top = device_profile(torch, engine(n, e, source, **knobs), log)
+    print(f"[4] device time (profiled re-run): {dev_s:.3f} s = "
+          f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
+          + "; ".join(f"{name} {sec:.3f} s x{cnt}" for name, sec, cnt in top))
+    us = sync_us(torch, n)
+    print(f"[4] host sync bool(frontier.any()) at N={n}: {us:.1f} us")
+    return {"name": "fused_sliced_relax", "route": "cuda",
+            "source":
+                "src/repro_torch/kernels/relax/csrc/fused_sliced_relax.cu",
+            "replaces": "src/repro/kernels/relax/fused.py:122",
+            "launches": l2, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "check": "bit-identical"}
+
+
+def hub_cross_check(torch) -> None:
+    """Phase 5: four engines on the 2^16 RMAT recipe, identical at every
+    query."""
+    from repro_torch.graphs import csr
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import relax as k1
+    n, e, source, log = stream(16, "rmat")
     runs = {}
-    for use_kernel in (True, False):
-        k1.ellpack_relax.launches = 0
-        eng = engine(n, e, source, ell_use_kernel=use_kernel)
-        runs[use_kernel] = (eng.ingest_log(log), k1.ellpack_relax.launches)
-    (res_k, l_k), (res_p, l_p) = runs[True], runs[False]
-    assert l_k > 0 and l_p == 0, (l_k, l_p)
-    assert len(res_k) == len(res_p) > 0
-    for a, b in zip(res_k, res_p):
-        assert np.array_equal(a.dist, b.dist), "kernel/plain dist differ"
-        assert np.array_equal(a.parent, b.parent), "kernel/plain parent differ"
-        assert a.epoch_stats == b.epoch_stats, "kernel/plain stats differ"
-    print(f"[4] n={n}: kernel and plain engines identical at all "
-          f"{len(res_k)} queries (K1 launches {l_k}; stats "
-          f"{res_k[-1].epoch_stats})")
+    for name, knobs in (
+            ("auto+K2", dict(relax_backend="auto", sliced_fused=True)),
+            ("sliced on K1", dict(relax_backend="sliced",
+                                  ell_use_kernel=True)),
+            ("sliced plain", dict(relax_backend="sliced",
+                                  ell_use_kernel=False)),
+            ("segment", dict(relax_backend="segment"))):
+        eng = engine(n, e, source, **knobs)
+        wall, res, launches = run_path(
+            torch, eng, log, [k1.ellpack_relax, k2.fused_sliced_relax])
+        runs[name] = (res, launches, wall, eng)
+    assert runs["auto+K2"][1][1] > 0 and runs["sliced on K1"][1][0] > 0
+    assert runs["sliced plain"][1] == runs["segment"][1] == [0, 0]
+    want = runs["segment"][0]
+    for name, (res, *_) in runs.items():
+        same_results(name, res, want)
+    planner = runs["sliced on K1"][3].backend.planner
+    print(f"[5] n={n}: auto+K2 (K2 launches {runs['auto+K2'][1][1]}), sliced "
+          f"on K1 (K1 launches {runs['sliced on K1'][1][0]}, "
+          f"{len(csr.width_runs(planner.widths))} per wave at the end), "
+          f"sliced plain and segment identical at all {len(want)} queries "
+          f"(stats {want[-1].epoch_stats}); wall s "
+          + ", ".join(f"{k} {v[2]:.2f}" for k, v in runs.items()))
 
-    # ---- 5. result lines
-    kernels = [{
-        "name": "ellpack_relax", "route": "cuda",
-        "source": "src/repro_torch/kernels/relax/csrc/ellpack_relax.cu",
-        "replaces": "src/repro/kernels/relax/relax.py:49",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None, "check": "bit-identical",
-    }]
+
+def localized_batches(n: int):
+    """48 batches of 8 fresh edges, each inside a random 1k vertex window
+    (benchmarks/bench_sssp.py's localized recipe, rng seed 7)."""
+    from repro_torch.core import events as ev
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(48):
+        ws = int(rng.integers(0, n - 1024))
+        u = ws + rng.integers(0, 1024, 8)
+        v = ws + rng.integers(0, 1024, 8)
+        batches.append(ev.adds(u.astype(np.int64), v.astype(np.int64),
+                               rng.uniform(0.5, 1.5, 8).astype(np.float32)))
+    return batches   # one log each: ingest_log runs each as its own epoch
+
+
+def sparse_path(torch):
+    """Phase 6a: the localized stream at 2^20, sparse on K3 against dense
+    segment.  The inputs of the last K3 call of each edge-list length are
+    kept for the kernel comparison at the path's own shapes."""
+    import repro_torch
+    from repro_torch.core import events as ev
+    from repro_torch.core import frontier as frontier_mod
+    from repro_torch.graphs import generators
+    from repro_torch.kernels.relax import gather as k3
+    from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
+    t0 = time.perf_counter()
+    n, bs, bd, bw = generators.rmat(20, 4, seed=11)
+    base = ev.adds(bs, bd, bw)
+    batches = localized_batches(n)
+    cap = len(bs) + 8 * 48 + 64
+    print(f"[6] localized stream: n={n}, base {len(bs)} edges (rmat(20, 4, "
+          f"seed=11)), then 48 batches of 8 edges; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shapes = {}
+    real = frontier_mod.gathered_rows_relax
+
+    def recording(*args, **kw):
+        shapes[args[0].shape[0]] = (args, kw)
+        return real(*args, **kw)
+
+    runs = {}
+    for mode, knobs in (("dense", {}), ("sparse", dict(
+            frontier_mode="sparse", frontier_kernel=True))):
+        eng = repro_torch.make_engine(num_vertices=n, edge_capacity=cap,
+                                      source=0, **knobs)
+        eng.ingest_log(base)                       # untimed base build
+        q0 = eng.query()
+        r0 = eng.n_rounds
+        frontier_mod.gathered_rows_relax = recording
+        try:
+            wall, _, (l3,) = run_path(torch, eng, batches,
+                                      [k3.gathered_rows_relax])
+        finally:
+            frontier_mod.gathered_rows_relax = real
+        runs[mode] = ([q0, eng.query()], wall, l3, eng.n_rounds - r0)
+        del eng
+    (dense, d_wall, d_l3, d_waves) = runs["dense"]
+    (sparse, s_wall, l3, s_waves) = runs["sparse"]
+    assert d_l3 == 0 and l3 > 0, "the sparse path never launched K3"
+    same_results("sparse vs dense", sparse, dense)
+    us = sync_us(torch, n)
+    print(f"[6] sparse + K3 identical to dense segment (dist, parent, "
+          f"rounds, messages; stats {sparse[-1].epoch_stats}): dense "
+          f"{384 / d_wall:.0f} events/s ({d_waves} waves x 1 host sync), "
+          f"sparse {384 / s_wall:.0f} events/s ({s_waves} waves x 2 host "
+          f"syncs: the frontier read and the ladder's one read of three "
+          f"counts; {us:.1f} us each); K3 launches {l3}")
+
+    for e, (args, kw) in sorted(shapes.items()):
+        err = k3_check(torch, args, kw["num_rows"])
+    e, (args, kw) = max(shapes.items())
+    ms = cuda_ms(torch, lambda: k3.gathered_rows_relax(*args, **kw), 200)
+    plain_ms = cuda_ms(torch, lambda: gathered_rows_relax_ref(*args, **kw),
+                       20)
+    # one mask byte per slot, 16 bytes per masked-in slot, best + arg
+    live = int(args[4].sum())
+    nbytes = e + 16 * live + 8 * kw["num_rows"]
+    bound_ms, bound_by = bound(nbytes, 2 * live)
+    print(f"[6] K3 bit-identical to its plain version at the path's edge "
+          f"list lengths {sorted(shapes)}; at E={e} ({live} masked in) "
+          f"R={kw['num_rows']}: "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+    return {"name": "gathered_rows_relax", "route": "cuda",
+            "source":
+                "src/repro_torch/kernels/relax/csrc/gathered_rows_relax.cu",
+            "replaces": "src/repro/kernels/relax/gather.py:92",
+            "launches": l3, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "check": "bit-identical"}
+
+
+def sparse_cross_check(torch) -> None:
+    """Phase 6b: the 2^16 RMAT sliding-window stream (ADD and DEL epochs)
+    sparse on K3 against sparse on the plain version."""
+    from repro_torch.kernels.relax import gather as k3
+    n, e, source, log = stream(16, "rmat")
+    runs = []
+    for kernel in (True, False):
+        eng = engine(n, e, source, frontier_mode="sparse",
+                     frontier_kernel=kernel)
+        runs.append(run_path(torch, eng, log, [k3.gathered_rows_relax]))
+    (k_wall, got, (l3,)), (p_wall, want, (plain,)) = runs
+    assert l3 > 0 and plain == 0, (l3, plain)
+    same_results("sparse K3 vs plain", got, want)
+    print(f"[6] n={n} sliding window: sparse on K3 (launches {l3}, "
+          f"{k_wall:.2f} s) and on the plain version ({p_wall:.2f} s) "
+          f"identical at all {len(got)} queries (stats "
+          f"{got[-1].epoch_stats})")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels.relax import fused, gather, relax
+
+    # ---- 1. card, build
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    for b in build.load_all([relax.SOURCE, fused.SOURCE, gather.SOURCE]):
+        regs = [ln.split(":")[-1].strip() for ln in b.log.splitlines()
+                if "registers" in ln]
+        print(f"[1] {b.path.name}: nvcc {b.seconds:.2f} s; ptxas {regs}")
+    print(f"[1] all kernels built in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 2. kernels vs plain versions at edge cases
+    kernel_edge_cases(torch)
+
+    # ---- 3.-6. the paths, each with its kernels' counts
+    kernels = [dense_ell_path(torch), hub_path(torch)]
+    hub_cross_check(torch)
+    kernels.append(sparse_path(torch))
+    sparse_cross_check(torch)
+
+    # ---- 7. result lines
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,45 +34,74 @@ def register(cls: type["RelaxBackend"]) -> type["RelaxBackend"]:
     return cls
 
 
-# A dense-ELL rebuild whose ``K*N`` cell allocation exceeds this many times
-# the live edge count warns of the power-law-hub pathology.
+# Knobs that only make sense for a particular backend: setting one away from
+# its dataclass default while selecting a different backend is a config bug.
+# ``ell_use_kernel`` is the one shared knob: both ELL-layout backends
+# (ellpack, sliced) consume it.
+_SLICED_KNOBS = ("sliced_slice_rows", "sliced_hub_k", "sliced_init_k",
+                 "sliced_fused")
+_ELLPACK_KNOBS = ("ell_block_rows", "ell_init_k")
+_ELL_SHARED_KNOBS = ("ell_use_kernel",)
+
+# ``relax_backend="auto"``: start on the dense ELL layout and fall back to
+# the sliced/hybrid layout when a rebuild's ``K*N`` cell allocation blows
+# past ``ELL_BLOWUP_RATIO`` times the live edge count — the power-law-hub
+# pathology.  Both layouts' knobs are therefore legitimate under "auto".
+AUTO_BACKEND = "auto"
 ELL_BLOWUP_RATIO = 16
+
+FRONTIER_MODES = ("dense", "sparse", "auto")
 
 # Reference options that later slices of the port bring over: selecting one
 # raises instead of silently running something else.
-NOT_YET_PORTED = {
-    "relax_backend": ("sliced", "auto"),
-    "wave_schedule": ("buckets",),
-    "frontier_mode": ("sparse", "auto"),
-}
-_ELLPACK_KNOBS = ("ell_block_rows", "ell_init_k", "ell_use_kernel")
+NOT_YET_PORTED = {"wave_schedule": ("buckets",)}
 
 
 def validate_backend_config(cfg: Any) -> None:
     """Raise ``ValueError`` at construction time for an unknown or not yet
-    ported backend/schedule/frontier mode, or for dense-ELL knobs set while
-    another backend is selected."""
+    ported backend/schedule/frontier mode, or for backend or frontier knobs
+    that do not apply to the selected backend or mode (the reference's
+    rules)."""
     for knob, later in NOT_YET_PORTED.items():
         val = getattr(cfg, knob)
         if val in later:
             raise ValueError(f"{knob}={val!r} is not yet ported to "
                              f"repro_torch")
     name = cfg.relax_backend
-    if name not in BACKENDS:
+    if name not in BACKENDS and name != AUTO_BACKEND:
         raise ValueError(f"unknown relax_backend {name!r}; valid backends: "
-                         f"{sorted(BACKENDS)}")
+                         f"{sorted(BACKENDS) + [AUTO_BACKEND]}")
     if cfg.wave_schedule != "rounds":
         raise ValueError(f"unknown wave_schedule {cfg.wave_schedule!r}")
-    if cfg.frontier_mode != "dense":
-        raise ValueError(f"unknown frontier_mode {cfg.frontier_mode!r}")
-    if name != "ellpack":
-        defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
-        for k in _ELLPACK_KNOBS:
+    mode = cfg.frontier_mode
+    if mode not in FRONTIER_MODES:
+        raise ValueError(f"unknown frontier_mode {mode!r}; valid modes: "
+                         f"{list(FRONTIER_MODES)}")
+    if cfg.frontier_cap < 0:
+        raise ValueError(f"frontier_cap must be >= 0 (0 = derive); got "
+                         f"{cfg.frontier_cap}")
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    if mode == "dense":
+        for k in ("frontier_cap", "frontier_kernel"):
+            if getattr(cfg, k) != defaults[k]:
+                raise ValueError(
+                    f"{k}={getattr(cfg, k)!r} configures the sparse "
+                    f"frontier path; remove it or select "
+                    f"frontier_mode='sparse'/'auto'")
+    misapplied: list[tuple[tuple[str, ...], str]] = []
+    if name not in ("sliced", AUTO_BACKEND):
+        misapplied.append((_SLICED_KNOBS, "sliced"))
+    if name not in ("ellpack", AUTO_BACKEND):
+        misapplied.append((_ELLPACK_KNOBS, "dense-ELL"))
+    if name == "segment":
+        misapplied.append((_ELL_SHARED_KNOBS, "ELL-layout"))
+    for knobs, layout in misapplied:
+        for k in knobs:
             if getattr(cfg, k) != defaults[k]:
                 raise ValueError(
                     f"{k}={getattr(cfg, k)!r} is a backend knob that does "
                     f"not apply to relax_backend={name!r} (it configures "
-                    f"the dense-ELL layout); remove it or select the "
+                    f"the {layout} layout); remove it or select the "
                     f"matching backend")
 
 
@@ -117,12 +146,15 @@ class RelaxBackend:
 
 
 def make_backend(name: str, cfg: Any, *, use_kernel: bool = False,
-                 device: torch.device | str = "cpu") -> RelaxBackend:
+                 device: torch.device | str = "cpu",
+                 **options: Any) -> RelaxBackend:
+    """Construct backend ``name``; ``options`` are that backend's own
+    constructor flags (``defer_blowup`` of ``ellpack``)."""
     if name not in BACKENDS:
         raise ValueError(f"unknown relax_backend {name!r}; valid backends: "
                          f"{sorted(BACKENDS)}")
     return BACKENDS[name](cfg, cfg.num_vertices, use_kernel=use_kernel,
-                          device=device)
+                          device=device, **options)
 
 
 def rank_within_rows(rows: np.ndarray) -> np.ndarray:

@@ -174,12 +174,14 @@ class EllPlanner:
                if len(dst) else np.zeros(self.n, np.int64))
         return max(self.k, _next_pow2(max(2 * int(deg.max(initial=0)), 1)))
 
-    def rebuild_host(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray
+    def rebuild_host(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                     k: int | None = None
                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Rebuild the block from the live COO edge set (host mirror):
         compacts tombstones and doubles K when the degree itself (not
-        churn) caused the overflow."""
-        self.k = self.required_k(dst)
+        churn) caused the overflow.  ``k`` is ``required_k(dst)`` when the
+        caller has it already."""
+        self.k = self.required_k(dst) if k is None else k
         cells, live = self.rows * self.k, len(dst)
         if (live and cells > ELL_BLOWUP_RATIO * live
                 and not self._warned_blowup):
@@ -255,20 +257,32 @@ class EllpackBackend(RelaxBackend):
 
     name = "ellpack"
 
-    def __init__(self, cfg, num_vertices, *, use_kernel=False, device="cpu"):
+    def __init__(self, cfg, num_vertices, *, use_kernel=False, device="cpu",
+                 defer_blowup=False):
         super().__init__(cfg, num_vertices, use_kernel=use_kernel,
                          device=device)
         self.planner = EllPlanner(num_vertices, block_rows=cfg.ell_block_rows,
                                   init_k=cfg.ell_init_k)
         self.state = EllState.from_host(*self.planner.empty_host(),
                                         self.device)
+        self.blowup = False   # set by rebuilds; read by the "auto" fallback
+        # the caller swaps layouts on blowup, so a blown-up block is not built
+        self.defer_blowup = defer_blowup
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
-    def _rebuild(self, alloc) -> None:
-        self.state = EllState.from_host(
-            *self.planner.rebuild_host(*alloc.active_coo()), self.device)
+    def _rebuild(self, alloc, *, defer_blowup: bool = False) -> bool:
+        """Rebuild from the pool mirror; returns whether the block's K*R
+        cells exceed ELL_BLOWUP_RATIO x the live edges (not built then
+        when ``defer_blowup``)."""
+        src, dst, w = alloc.active_coo()
+        k = self.planner.required_k(dst)
+        blowup = self.planner.rows * k > ELL_BLOWUP_RATIO * max(len(dst), 1)
+        if not (blowup and defer_blowup):
+            self.state = EllState.from_host(
+                *self.planner.rebuild_host(src, dst, w, k), self.device)
+        return blowup
 
     def apply_adds(self, plan, alloc):
         """Incremental ELL maintenance for one ADD batch.
@@ -276,13 +290,18 @@ class EllpackBackend(RelaxBackend):
         Fresh edges get planner-assigned cells (one idempotent scatter);
         weight-decreases resolve their cell on device.  Overflow of any
         row's fill mark triggers a full rebuild from the host COO mirror —
-        which already contains this batch, so no patch follows.
+        which already contains this batch, so no patch follows.  A rebuild
+        sets ``blowup`` when its K*R cells exceed ELL_BLOWUP_RATIO x the
+        live edges; with ``defer_blowup`` (the engine's
+        ``relax_backend="auto"``, which then swaps to the sliced layout) the
+        block is not built (at RMAT(20) it would be 2^31 cells, only to be
+        discarded).
         """
         fresh = plan.fresh
         rows = plan.dst[fresh].astype(np.int64)
         kpos = self.planner.plan_appends(rows)
         if kpos is None:
-            self._rebuild(alloc)
+            self.blowup = self._rebuild(alloc, defer_blowup=self.defer_blowup)
             return
         if len(rows):
             ell_append(self.state, *map(self._dev, ingest.pad_pow2(

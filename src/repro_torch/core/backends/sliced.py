@@ -1,0 +1,452 @@
+"""Sliced hybrid backend: per-slice-K ELL + hub overflow COO behind the
+RelaxBackend protocol (torch rendering of ``repro.core.backends.sliced``,
+single-device side).
+
+Rows are bucketed into degree slices with per-slice pow2 K (capped at a hub
+threshold), flattened into one 1-D cell buffer, plus a device COO *overflow*
+segment holding hub rows' surplus in-edges.  Maintenance mirrors the dense
+ELL backend cell for cell (idempotent appends, device-side match+tombstone
+DEL/min-update probing both lanes, per-slice width doubling plus overflow
+doubling at mirror rebuilds).
+
+A wave is the ELL lane (``sliced_gather_min``: K1 once per equal-width run
+of slices), the overflow lane (``overflow_min``: a scatter-min) and their
+combine (``combine_lanes``: the smallest-src-id rule across both lanes;
+the three live in ``kernels/relax/ref.py``, K2's plain version) —
+or, with ``use_fused``, the whole wave in kernel K2 (``kernels/relax/
+fused.py``).  Both are bit-identical to the reference's waves.
+
+The patch ops update the layout IN PLACE and tolerate pad_pow2-repeated
+entries (every scatter that could meet a repeat with a different value is a
+max/min-reduce).  The reference finds a deleted edge's overflow entry with a
+dense (batch x capacity) match matrix, which eager torch would materialise
+(10^12 cells at a 2^17 DEL batch over a 2^23 lane); here the live entries'
+``(dst << 32) | src`` keys are sorted once per patch and searched.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import delete as del_mod
+from repro_torch.core import ingest
+from repro_torch.core.backends.base import (RelaxBackend, rank_within_rows,
+                                            register)
+from repro_torch.core.relax import RelaxStats, converged_loop
+from repro_torch.core.state import INF, SSSPState
+from repro_torch.graphs import csr as csr_mod
+from repro_torch.kernels.relax.fused import fused_sliced_relax
+from repro_torch.kernels.relax.ref import (combine_lanes, ellpack_relax_ref,
+                                           overflow_min, sliced_gather_min)
+from repro_torch.kernels.relax.relax import ellpack_relax
+
+_next_pow2 = csr_mod.next_pow2
+
+
+@dataclasses.dataclass
+class SlicedEllState:
+    """Device-resident hybrid sliced-ELL + overflow-COO view of the edge set.
+
+    Row r's cells occupy ``[base[r], base[r] + rowk[r])`` of the flat buffer
+    (``flat_idx``, ``flat_w``); ``fill`` is each row's occupancy high-water
+    mark.  Hub rows keep their surplus in-edges in the overflow segment
+    ``(osrc, odst, ow)``; empty/tombstoned entries carry w=+inf.
+    """
+
+    flat_idx: torch.Tensor  # i32[L] in-neighbor ids (0 where empty/tombstone)
+    flat_w: torch.Tensor    # f32[L] weights (+inf where empty/tombstone)
+    fill: torch.Tensor      # i32[R]
+    base: torch.Tensor      # i32[R] flat offset of each row's first cell
+    rowk: torch.Tensor      # i32[R] each row's slice width
+    osrc: torch.Tensor      # i32[C] overflow in-neighbor ids
+    odst: torch.Tensor      # i32[C] overflow destination rows
+    ow: torch.Tensor        # f32[C] overflow weights (+inf empty/tombstone)
+
+    @staticmethod
+    def from_host(planner: "SlicedEllPlanner", arrays,
+                  device: torch.device | str) -> "SlicedEllState":
+        """``arrays`` = (flat_idx, flat_w, fill, osrc, odst, ow) as the
+        planner's ``empty_host`` / ``rebuild_host`` return them."""
+        fi, fw, fill, osrc, odst, ow = (torch.tensor(a, device=device)
+                                        for a in arrays)
+        return SlicedEllState(
+            flat_idx=fi, flat_w=fw, fill=fill,
+            base=torch.tensor(planner.base.astype(np.int32), device=device),
+            rowk=torch.tensor(planner.rowk, device=device),
+            osrc=osrc, odst=odst, ow=ow)
+
+
+# --------------------------------------------------------------- patch ops --
+def sliced_append(st: SlicedEllState, pos: torch.Tensor, rows: torch.Tensor,
+                  kpos: torch.Tensor, src: torch.Tensor,
+                  w: torch.Tensor) -> SlicedEllState:
+    """Write fresh edges into planner-assigned flat cells, in place
+    (pad_pow2 repeats carry the same values, so the assignments are
+    idempotent; the fill marks take a max-reduce)."""
+    p = pos.long()
+    st.flat_idx[p] = src
+    st.flat_w[p] = w
+    st.fill.scatter_reduce_(0, rows.long(), kpos + 1, "amax")
+    return st
+
+
+def sliced_spill(st: SlicedEllState, opos: torch.Tensor, src: torch.Tensor,
+                 rows: torch.Tensor, w: torch.Tensor) -> SlicedEllState:
+    """Append hub-surplus edges into planner-assigned overflow entries, in
+    place (idempotent, as ``sliced_append``)."""
+    p = opos.long()
+    st.osrc[p] = src
+    st.odst[p] = rows
+    st.ow[p] = w
+    return st
+
+
+def _sliced_match(st: SlicedEllState, rows: torch.Tensor, src: torch.Tensor,
+                  width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Locate each (src -> rows) edge's live ELL cell: (flat_pos, found).
+    A ``width``-wide window per row, masked to the row's slice width; live
+    edges are unique per (row, src), so at most one cell matches, and an
+    unmatched row gives its window's first cell (``jnp.argmax``'s 0)."""
+    r = rows.long()
+    k = torch.arange(width, device=r.device)
+    pos = (st.base[r][:, None] + k).clamp(0, st.flat_w.shape[0] - 1)
+    hit = ((k < st.rowk[r][:, None]) & (st.flat_idx[pos] == src[:, None])
+           & torch.isfinite(st.flat_w[pos]))
+    sel = pos.gather(1, hit.to(torch.int32).argmax(dim=1, keepdim=True))
+    return sel[:, 0], hit.any(dim=1)
+
+
+def _overflow_match(st: SlicedEllState, rows: torch.Tensor,
+                    src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Locate each (src -> rows) edge's live overflow entry: (opos, found),
+    opos 0 where unmatched (the reference's ``argmax`` over its match
+    matrix).  Live entries are unique per (dst, src), so a sorted-key search
+    finds the same entry the match matrix does."""
+    live = torch.isfinite(st.ow)
+    keys = torch.where(live, (st.odst.long() << 32) | st.osrc.long(), -1)
+    skeys, perm = torch.sort(keys)
+    want = (rows.long() << 32) | src.long()
+    at = torch.searchsorted(skeys, want).clamp(max=skeys.shape[0] - 1)
+    found = skeys[at] == want
+    return torch.where(found, perm[at], 0), found
+
+
+def sliced_delete(st: SlicedEllState, rows: torch.Tensor, src: torch.Tensor,
+                  *, width: int) -> SlicedEllState:
+    """Tombstone deleted edges (w := +inf) wherever they live — ELL cell or
+    overflow entry — in place.  Unmatched or padded entries scatter -inf
+    under a max-reduce, a no-op, so both scatters are order-free."""
+    sel, found = _sliced_match(st, rows, src, width)
+    opos, ofound = _overflow_match(st, rows, src)
+    st.flat_w.scatter_reduce_(0, sel, torch.where(found, INF, -INF), "amax")
+    st.ow.scatter_reduce_(0, opos, torch.where(ofound, INF, -INF), "amax")
+    return st
+
+
+def sliced_update_min(st: SlicedEllState, rows: torch.Tensor,
+                      src: torch.Tensor, w: torch.Tensor, *,
+                      width: int) -> SlicedEllState:
+    """Weight-decrease of existing edges (on_duplicate="min"): device-side
+    match + min-reduce in both lanes (+inf = no-op when unmatched)."""
+    sel, found = _sliced_match(st, rows, src, width)
+    opos, ofound = _overflow_match(st, rows, src)
+    st.flat_w.scatter_reduce_(0, sel, torch.where(found, w, INF), "amin")
+    st.ow.scatter_reduce_(0, opos, torch.where(ofound, w, INF), "amin")
+    return st
+
+
+# ------------------------------------------------------------------- waves --
+def sliced_relax_wave(dist: torch.Tensor, parent: torch.Tensor,
+                      st: SlicedEllState, *, widths: tuple[int, ...],
+                      slice_rows: int, num_vertices: int,
+                      frontier: torch.Tensor | None = None,
+                      use_kernel: bool = False, use_fused: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One hybrid relaxation wave (frontier-masked when given).
+    ``use_fused`` routes the whole wave through K2's wrapper (the CUDA
+    kernel on CUDA tensors, whatever ``use_kernel`` says, as the reference
+    always takes its Pallas kernel there); otherwise the ELL lane runs K1
+    when ``use_kernel``.  Returns (dist', parent', improved)."""
+    n = dist.shape[0]
+    if use_fused:
+        act = (torch.ones_like(dist, dtype=torch.bool) if frontier is None
+               else frontier)
+        comb, new_parent = fused_sliced_relax(
+            dist, act, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow,
+            widths=widths, slice_rows=slice_rows, base=st.base, rowk=st.rowk)
+        comb, new_parent = comb[:n], new_parent[:n]
+    else:
+        offers = dist if frontier is None else torch.where(frontier, dist, INF)
+        best, arg = sliced_gather_min(
+            offers, st.flat_idx, st.flat_w, widths=widths,
+            slice_rows=slice_rows,
+            relax=ellpack_relax if use_kernel else ellpack_relax_ref)
+        obest, oarg = overflow_min(offers, st.osrc, st.odst, st.ow,
+                                   num_vertices)
+        comb, new_parent = combine_lanes(best[:n], arg[:n], obest, oarg)
+    improved = comb < dist
+    return (torch.where(improved, comb, dist),
+            torch.where(improved, new_parent, parent), improved)
+
+
+# ------------------------------------------------------------------ epochs --
+def sliced_relax_until_converged(sssp: SSSPState, st: SlicedEllState,
+                                 frontier: torch.Tensor, *,
+                                 widths: tuple[int, ...], slice_rows: int,
+                                 num_vertices: int, use_kernel: bool = False,
+                                 use_fused: bool = False
+                                 ) -> tuple[SSSPState, RelaxStats]:
+    """Sliced rendering of relax.relax_until_converged: frontier-masked
+    hybrid waves to fixpoint.  Same candidate sets, same tie-break =>
+    bit-identical results and stats."""
+
+    def wave(dist, parent, frontier):
+        return sliced_relax_wave(
+            dist, parent, st, widths=widths, slice_rows=slice_rows,
+            num_vertices=num_vertices, frontier=frontier,
+            use_kernel=use_kernel, use_fused=use_fused)
+
+    dist, parent, rounds, msgs = converged_loop(
+        sssp.dist, sssp.parent, frontier, wave)
+    return (SSSPState(dist=dist, parent=parent, source=sssp.source),
+            RelaxStats(rounds=rounds, messages=msgs))
+
+
+def sliced_invalidate_and_recompute(
+    sssp: SSSPState, st: SlicedEllState, seed: torch.Tensor, *,
+    widths: tuple[int, ...], slice_rows: int, num_vertices: int,
+    use_doubling: bool = True, use_kernel: bool = False,
+    use_fused: bool = False,
+) -> tuple[SSSPState, del_mod.DeleteStats]:
+    """Deletion epoch on the hybrid layout — the dense-ELL deletion epoch's
+    structure (shared invalidation, the bulk pull as one unmasked wave
+    applied to affected rows only), with the hybrid wave so hub rows also
+    pull through the overflow lane."""
+    if not bool(seed.any()):
+        return sssp, del_mod.empty_delete_stats(seed.device)
+    aff, inv_rounds, dist, parent = del_mod.invalidate(
+        sssp, seed, use_doubling=use_doubling)
+    kw = dict(widths=widths, slice_rows=slice_rows,
+              num_vertices=num_vertices, use_kernel=use_kernel,
+              use_fused=use_fused)
+    dist_p, parent_p, improved = sliced_relax_wave(dist, parent, st, **kw)
+    improved = improved & aff
+    dist = torch.where(improved, dist_p, dist)
+    parent = torch.where(improved, parent_p, parent)
+    state, stats = sliced_relax_until_converged(
+        SSSPState(dist=dist, parent=parent, source=sssp.source), st,
+        improved, **kw)
+    return state, del_mod.DeleteStats(
+        invalidation_rounds=inv_rounds,
+        affected=aff.sum(),
+        recompute_rounds=stats.rounds + 1,
+        recompute_messages=stats.messages + improved.sum())
+
+
+# ------------------------------------------------------------ host planner --
+class SlicedPlan(NamedTuple):
+    """One ADD batch's placement: ELL cells + overflow spills (numpy)."""
+
+    pos: np.ndarray    # i32[e] flat ELL cell positions (base[row] + kpos)
+    rows: np.ndarray   # i32[e]
+    kpos: np.ndarray   # i32[e]
+    src: np.ndarray    # i32[e]
+    w: np.ndarray      # f32[e]
+    opos: np.ndarray   # i32[s] overflow entry positions
+    osrc: np.ndarray   # i32[s]
+    orows: np.ndarray  # i32[s]
+    ow: np.ndarray     # f32[s]
+
+
+class SlicedEllPlanner:
+    """Host control plane for the hybrid layout (numpy copy of the
+    reference's): assigns ELL cells and overflow entries, detects per-slice
+    / overflow exhaustion, and rebuilds from the host COO mirror with
+    monotone per-slice capacity doubling (each slice's width doubles
+    independently, capped at ``hub_k``; the overflow capacity doubles when
+    the live surplus outgrows it).  A row whose fill reaches ``hub_k`` is a
+    hub: its further in-edges spill to the overflow segment."""
+
+    def __init__(self, num_vertices: int, *, slice_rows: int = 256,
+                 hub_k: int = 32, init_k: int = 2):
+        self.n = num_vertices
+        self.sr = min(_next_pow2(max(slice_rows, 1)),
+                      _next_pow2(max(num_vertices, 1)))
+        self.rows = -(-num_vertices // self.sr) * self.sr
+        self.n_slices = self.rows // self.sr
+        self.hub_k = _next_pow2(max(hub_k, 1))
+        init_k = min(_next_pow2(max(init_k, 1)), self.hub_k)
+        self.widths = [init_k] * self.n_slices
+        self.fill = np.zeros(self.rows, np.int32)
+        self.ocap = 8
+        self.ofill = 0
+        self.rebuilds = 0
+        self.spills = 0
+        self._recompute_geometry()
+
+    def _recompute_geometry(self) -> None:
+        _, self.rowk, self.base, self.cells = csr_mod.sliced_geometry(
+            self.widths, self.sr)
+
+    @property
+    def max_width(self) -> int:
+        return max(self.widths)
+
+    def empty_host(self):
+        return (np.zeros(self.cells, np.int32),
+                np.full(self.cells, INF, np.float32),
+                np.zeros(self.rows, np.int32),
+                np.zeros(self.ocap, np.int32),
+                np.zeros(self.ocap, np.int32),
+                np.full(self.ocap, INF, np.float32))
+
+    def plan_appends(self, rows: np.ndarray, src: np.ndarray,
+                     w: np.ndarray) -> SlicedPlan | None:
+        """Assign each fresh edge an ELL cell past its row's fill mark, or
+        an overflow entry once the row is at the hub threshold.  Returns
+        None when a sub-threshold row outgrows its slice width or the
+        overflow segment is full — the caller must rebuild instead."""
+        m = len(rows)
+        z32 = np.empty(0, np.int32)
+        zf = np.empty(0, np.float32)
+        if m == 0:
+            return SlicedPlan(z32, z32, z32, z32, zf, z32, z32, z32, zf)
+        rows = np.asarray(rows, np.int64)
+        kcand = self.fill[rows] + rank_within_rows(rows)
+        to_ell = kcand < self.rowk[rows]
+        over = ~to_ell
+        # overflow is only legal past the hub threshold; a sub-threshold row
+        # outgrowing its slice width means the slice must double -> rebuild
+        if bool((over & (self.rowk[rows] < self.hub_k)).any()):
+            return None
+        n_spill = int(over.sum())
+        if self.ofill + n_spill > self.ocap:
+            return None
+        erows = rows[to_ell]
+        ekpos = kcand[to_ell].astype(np.int32)
+        np.maximum.at(self.fill, erows, ekpos + 1)
+        sp_rank = np.cumsum(over) - 1
+        opos = (self.ofill + sp_rank[over]).astype(np.int32)
+        self.ofill += n_spill
+        self.spills += n_spill
+        return SlicedPlan(
+            pos=(self.base[erows] + ekpos).astype(np.int32),
+            rows=erows.astype(np.int32), kpos=ekpos,
+            src=np.asarray(src)[to_ell], w=np.asarray(w)[to_ell],
+            opos=opos, osrc=np.asarray(src)[over],
+            orows=rows[over].astype(np.int32), ow=np.asarray(w)[over])
+
+    def required_geometry(self, dst: np.ndarray) -> tuple[list[int], int]:
+        """(widths, overflow capacity) the doubling policy wants for a live
+        edge set."""
+        deg = np.zeros(self.rows, np.int64)
+        if len(dst):
+            deg[:self.n] = np.bincount(np.asarray(dst, np.int64),
+                                       minlength=self.n)
+        capped = np.minimum(deg, self.hub_k)
+        slice_max = capped.reshape(self.n_slices, self.sr).max(axis=1)
+        widths = [
+            max(cur, min(self.hub_k, _next_pow2(max(2 * int(mx), 1))))
+            for cur, mx in zip(self.widths, slice_max)]
+        surplus = int((deg - capped).sum())
+        ocap = max(self.ocap, _next_pow2(max(2 * surplus, 8)))
+        return widths, ocap
+
+    def rebuild_host(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray):
+        """Rebuild from the live COO edge set (host mirror): tombstones
+        compact away, each slice's width grows to the next pow2 of 2x its
+        capped max in-degree (monotone, <= hub_k), and the overflow capacity
+        doubles past the live surplus.  Returns (flat_idx, flat_w, fill,
+        osrc, odst, ow)."""
+        self.widths, self.ocap = self.required_geometry(dst)
+        flat_idx, flat_w, fill, _, osrc, odst, ow, n_over = \
+            csr_mod.sliced_ell_from_coo(
+                self.n, src, dst, w, slice_rows=self.sr, hub_k=self.hub_k,
+                n_rows=self.rows, widths=self.widths,
+                overflow_capacity=self.ocap)
+        self.fill = fill
+        self.ofill = n_over
+        self.rebuilds += 1
+        self._recompute_geometry()
+        return flat_idx, flat_w, fill, osrc, odst, ow
+
+
+# ----------------------------------------------------------------- backend --
+@register
+class SlicedBackend(RelaxBackend):
+    """RelaxBackend over the hybrid layout: SlicedEllPlanner host control
+    plane, dual-lane in-place patch ops, hybrid epoch waves (K1 per run of
+    slices, or K2 for the whole wave with ``sliced_fused``), coupled
+    per-slice / overflow rebuilds from the mirror."""
+
+    name = "sliced"
+
+    def __init__(self, cfg, num_vertices, *, use_kernel=False, device="cpu"):
+        super().__init__(cfg, num_vertices, use_kernel=use_kernel,
+                         device=device)
+        self.use_fused = cfg.sliced_fused
+        self.planner = self._mk_planner()
+        self.state = SlicedEllState.from_host(
+            self.planner, self.planner.empty_host(), self.device)
+
+    def _mk_planner(self) -> SlicedEllPlanner:
+        return SlicedEllPlanner(
+            self.n, slice_rows=self.cfg.sliced_slice_rows,
+            hub_k=self.cfg.sliced_hub_k, init_k=self.cfg.sliced_init_k)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _rebuild(self, alloc) -> None:
+        self.state = SlicedEllState.from_host(
+            self.planner, self.planner.rebuild_host(*alloc.active_coo()),
+            self.device)
+
+    def apply_adds(self, plan, alloc):
+        """Fresh edges get planner-assigned ELL cells or — for rows at the
+        hub threshold — overflow entries; weight-decreases resolve their
+        cell/entry on device.  Slice-width or overflow exhaustion triggers
+        a full rebuild from the host COO mirror (which already contains this
+        batch, so no patch follows)."""
+        fresh = plan.fresh
+        sp = self.planner.plan_appends(
+            plan.dst[fresh].astype(np.int64), plan.src[fresh], plan.w[fresh])
+        if sp is None:
+            self._rebuild(alloc)
+            return
+        if len(sp.pos):
+            sliced_append(self.state, *map(self._dev, ingest.pad_pow2(
+                sp.pos, sp.rows, sp.kpos, sp.src, sp.w)))
+        if len(sp.opos):
+            sliced_spill(self.state, *map(self._dev, ingest.pad_pow2(
+                sp.opos, sp.osrc, sp.orows, sp.ow)))
+        if not fresh.all():
+            upd = ~fresh
+            sliced_update_min(self.state, *map(self._dev, ingest.pad_pow2(
+                plan.dst[upd], plan.src[upd], plan.w[upd])),
+                width=self.planner.max_width)
+
+    def apply_dels(self, rows, src):
+        sliced_delete(self.state, self._dev(rows), self._dev(src),
+                      width=self.planner.max_width)
+
+    def _epoch_kw(self) -> dict:
+        return dict(widths=tuple(self.planner.widths),
+                    slice_rows=self.planner.sr, num_vertices=self.n,
+                    use_kernel=self.use_kernel, use_fused=self.use_fused)
+
+    def relax(self, sssp, edges, frontier):
+        return sliced_relax_until_converged(sssp, self.state, frontier,
+                                            **self._epoch_kw())
+
+    def delete(self, sssp, edges, seed):
+        return sliced_invalidate_and_recompute(
+            sssp, self.state, seed, use_doubling=self.cfg.use_doubling,
+            **self._epoch_kw())
+
+    def restore(self, alloc):
+        self.planner = self._mk_planner()
+        self._rebuild(alloc)

@@ -10,13 +10,21 @@ Behaviour (as the reference):
   * QUERY markers snapshot (dist, parent).
 
 Switches: ``use_doubling`` (pointer-doubling invalidation, default; False =
-the paper's flood), ``relax_backend`` ("segment" or "ellpack"),
-``on_duplicate``, ``alloc_impl``.  ``device`` defaults to "cuda" and raises
-when CUDA is unavailable — there is no silent CPU fallback; tests pass
-``device="cpu"``.  ``ell_use_kernel=None`` runs kernel K1 iff the device
-is CUDA.  Options of the reference that later slices port (multi-source
-``sources``, the bucketed schedule, sparse frontiers, the sliced and auto
-backends, observability) raise ``ValueError``.
+the paper's flood), ``on_duplicate``, ``alloc_impl``, and
+  * ``relax_backend`` — "segment", "ellpack" (dense ELL), "sliced" (hub-aware
+    hybrid: per-slice-width ELL + overflow COO lane) or "auto" (dense ELL
+    that swaps to sliced when a rebuild reports hub blowup);
+    ``ell_use_kernel=None`` runs K1 iff the device is CUDA;
+    ``sliced_fused=True`` runs every sliced wave in kernel K2;
+  * ``frontier_mode`` — "dense", "sparse" (every push epoch through the
+    compacted worklist and the capacity ladder, core/frontier.py) or "auto"
+    (ADD epochs sparse when the host-known frontier fits the top rung;
+    deletions stay dense); ``frontier_kernel=True`` runs those waves in
+    kernel K3.
+``device`` defaults to "cuda" and raises when CUDA is unavailable — there
+is no silent CPU fallback; tests pass ``device="cpu"``.  Options of the
+reference that later slices port (multi-source ``sources``, the bucketed
+schedule, observability) raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 from repro_torch.core import backends as bk_mod
 from repro_torch.core import delete as del_mod
 from repro_torch.core import events as ev
+from repro_torch.core import frontier as frontier_mod
 from repro_torch.core import ingest, relax
 from repro_torch.core.state import EdgePool, GraphState, SSSPState
 from repro_torch.core.stream import QueryResult, StreamEngineBase
@@ -47,8 +56,15 @@ class EngineConfig:
     ell_block_rows: int = 256   # ELL row padding (rebuilds pad to this)
     ell_init_k: int = 8         # initial ELL width; doubles on overflow
     ell_use_kernel: bool | None = None  # None = kernel K1 iff device is CUDA
+    # "sliced" backend knobs
+    sliced_slice_rows: int = 256  # rows per degree slice (per-slice K)
+    sliced_hub_k: int = 32        # hub threshold: rows past it spill to COO
+    sliced_init_k: int = 2        # initial per-slice width; doubles at rebuild
+    sliced_fused: bool = False    # the whole wave in kernel K2
     wave_schedule: str = "rounds"
     frontier_mode: str = "dense"
+    frontier_cap: int = 0           # top ladder rung; 0 = derive (~N/64)
+    frontier_kernel: bool = False   # sparse waves in kernel K3
     sources: tuple[int, ...] | None = None
     observability: bool = False
     alloc_impl: str = "columnar"
@@ -86,14 +102,49 @@ class SSSPDelEngine(StreamEngineBase):
                                            cfg.on_duplicate, cfg.alloc_impl)
         self.state = GraphState.init(cfg.num_vertices, cfg.edge_capacity,
                                      cfg.source, self.device)
-        use_kernel = (self.device.type == "cuda" if cfg.ell_use_kernel is None
-                      else cfg.ell_use_kernel)
-        self.backend = bk_mod.make_backend(cfg.relax_backend, cfg,
-                                           use_kernel=use_kernel,
-                                           device=self.device)
+        self._use_kernel = (self.device.type == "cuda"
+                            if cfg.ell_use_kernel is None
+                            else cfg.ell_use_kernel)
+        # "auto" starts on the dense ELL layout and falls back to sliced when
+        # a rebuild reports hub blowup (backends/base.py ELL_BLOWUP_RATIO)
+        self._auto = cfg.relax_backend == bk_mod.AUTO_BACKEND
+        self.backend_name = "ellpack" if self._auto else cfg.relax_backend
+        self.backend = bk_mod.make_backend(
+            self.backend_name, cfg, use_kernel=self._use_kernel,
+            device=self.device, **({"defer_blowup": True} if self._auto
+                                   else {}))
+        # frontier-compacted sparse path: OUT-adjacency sidecar + capacity
+        # ladder, maintained whenever the mode can route sparse
+        self._sparse = cfg.frontier_mode != "dense"
+        if self._sparse:
+            self._out = frontier_mod.OutAdjacency(cfg.num_vertices,
+                                                  self.device)
+            self._caps = frontier_mod.capacity_ladder(cfg.num_vertices,
+                                                      cfg.frontier_cap)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def _route_sparse(self, occupancy_bound: int) -> bool:
+        """Host-only routing: "sparse" always takes the compacted path (the
+        ladder's dense rung bounds blowup); "auto" takes it only when the
+        host-known occupancy bound fits the top rung."""
+        if not self._sparse:
+            return False
+        if self.cfg.frontier_mode == "sparse":
+            return True
+        return occupancy_bound <= self._caps[-1]
+
+    def _fallback_to_sliced(self) -> None:
+        """relax_backend="auto": the dense-ELL rebuild just reported hub
+        blowup — swap to the sliced layout, rebuilt from the pool mirror
+        exactly as a restore would."""
+        self._auto = False
+        self.backend_name = "sliced"
+        self.backend = bk_mod.make_backend("sliced", self.cfg,
+                                           use_kernel=self._use_kernel,
+                                           device=self.device)
+        self.backend.restore(self.alloc)
 
     # ------------------------------------------------------------------ adds
     def _ingest_adds(self, batch: ev.EventBatch) -> None:
@@ -107,8 +158,18 @@ class SSSPDelEngine(StreamEngineBase):
         frontier = relax.frontier_from_vertices(self._dev(plan.src),
                                                 self.cfg.num_vertices)
         self.backend.apply_adds(plan, self.alloc)
-        self.state.sssp, stats = self.backend.relax(
-            self.state.sssp, self.state.edges, frontier)
+        if self._sparse:
+            self._out.apply_adds(plan, self.alloc)
+        if self._auto and self.backend.blowup:
+            self._fallback_to_sliced()
+        if self._route_sparse(len(np.unique(plan.src))):
+            self.state.sssp, stats = frontier_mod.sparse_relax_until_converged(
+                self.state.sssp, self.state.edges, self._out.state, frontier,
+                num_vertices=self.cfg.num_vertices, caps=self._caps,
+                use_kernel=self.cfg.frontier_kernel)
+        else:
+            self.state.sssp, stats = self.backend.relax(
+                self.state.sssp, self.state.edges, frontier)
         self._accumulate_relax(stats)
         self.n_adds += len(plan.slots)
         self.n_epochs += 1
@@ -120,14 +181,26 @@ class SSSPDelEngine(StreamEngineBase):
             if len(slots) == 0:
                 continue
             slots_p, psrc_p, pdst_p = ingest.pad_pow2(slots, psrc, pdst)
+            if self._sparse:
+                self._out.apply_dels(psrc_p, pdst_p)
             # Seed from the *pre-deletion* tree, then deactivate.
             seed = del_mod.deletion_seed_for_edges(
                 self.state.sssp, self._dev(psrc_p), self._dev(pdst_p),
                 self.cfg.num_vertices)
             ingest.apply_dels(self.state.edges, self._dev(slots_p))
             self.backend.apply_dels(pdst_p, psrc_p)
-            self.state.sssp, dstats = self.backend.delete(
-                self.state.sssp, self.state.edges, seed)
+            # the affected region's size is device-only knowledge, so only
+            # "sparse" routes deletions sparse; "auto" keeps them dense
+            if self.cfg.frontier_mode == "sparse":
+                self.state.sssp, dstats = \
+                    frontier_mod.sparse_invalidate_and_recompute(
+                        self.state.sssp, self.state.edges, self._out.state,
+                        seed, num_vertices=self.cfg.num_vertices,
+                        caps=self._caps, use_doubling=self.cfg.use_doubling,
+                        use_kernel=self.cfg.frontier_kernel)
+            else:
+                self.state.sssp, dstats = self.backend.delete(
+                    self.state.sssp, self.state.edges, seed)
             self._accumulate_delete(dstats)
             self.n_dels += len(slots)
             self.n_epochs += 1
@@ -166,3 +239,5 @@ class SSSPDelEngine(StreamEngineBase):
             self.cfg.edge_capacity, self.cfg.on_duplicate,
             ckpt["src"], ckpt["dst"], ckpt["w"], ckpt["active"])
         self.backend.restore(self.alloc)
+        if self._sparse:
+            self._out.restore(self.alloc)

@@ -3,6 +3,9 @@
     eng = make_engine(num_vertices=n, edge_capacity=m, source=0)
     eng = make_engine(num_vertices=n, edge_capacity=m, source=0,
                       relax_backend="ellpack", device="cpu")
+    eng = make_engine(num_vertices=n, edge_capacity=m, source=0,
+                      relax_backend="auto", sliced_fused=True,   # K1/K2
+                      frontier_mode="sparse", frontier_kernel=True)  # K3
 
 Every keyword must be a field of ``EngineConfig``; anything else raises a
 ValueError listing the valid knobs.  The sharded engine (``partitions=`` /

@@ -1,0 +1,268 @@
+"""Frontier-compacted sparse epochs — pay for the affected region, not the
+graph (torch rendering of ``repro.core.frontier``, single-device side).
+
+A dense wave dispatches over all N vertices and all E edge slots with a
+boolean [N] frontier mask gating the gather, so a 3-edge ADD on a 2^20 graph
+pays a whole-graph wave.  ``frontier_mode="sparse"|"auto"`` selects this
+path instead:
+
+  * ``compact_mask`` — cumsum + searchsorted compaction of the [N] frontier
+    into a bounded ascending, -1-padded worklist plus the exact count;
+  * a **capacity ladder** (``capacity_ladder``, ``edge_budget``) — each wave
+    compacts once at the top rung and runs the smallest rung whose vertex
+    count, ELL-cell total and live hub-overflow count all fit its budgets,
+    else the exact dense ``relax_round`` over the pool;
+  * ``OutAdjacency`` — the backend-independent OUT-adjacency sidecar: a
+    ``SlicedEllPlanner`` with src/dst roles swapped, so a worklist vertex's
+    row lists its out-neighbours;
+  * ``sparse_push_wave`` — the gathered-edges wave over the worklist's OUT
+    rows, relaxed by kernel K3 (``frontier_kernel=True``) or its plain
+    version;
+  * the sparse relax and delete epochs, mirroring the dense ones' loops.
+
+The sparse wave's candidates are exactly the live out-edges of frontier
+vertices — the set the dense wave's ``active & frontier[src]`` mask selects
+— and the loops carry the same [N] mask, so (dist, parent, rounds,
+messages) are bit-identical to the dense path, whatever rung runs.
+
+The reference picks the rung on the device with nested ``lax.cond``; eager
+torch has no device branch, so ``ladder_wave`` reads (count, ELL cells,
+overflow entries) back in ONE host sync per wave and branches on the host.
+With ``converged_loop``'s ``any(frontier)`` read, a sparse wave costs two
+host syncs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import delete as del_mod
+from repro_torch.core import ingest, relax
+from repro_torch.core.backends.sliced import (SlicedEllPlanner,
+                                              SlicedEllState, sliced_append,
+                                              sliced_delete, sliced_spill,
+                                              sliced_update_min)
+from repro_torch.core.relax import RelaxStats, converged_loop
+from repro_torch.core.state import INF, EdgePool, SSSPState
+from repro_torch.graphs import csr as csr_mod
+from repro_torch.kernels.relax.gather import (gathered_rows_relax,
+                                              gathered_rows_relax_ref)
+
+# ----------------------------------------------------- compaction primitive --
+def compact_mask(mask: torch.Tensor, *, cap: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compact a bool[N] mask into an ascending i32[cap] vertex worklist:
+    the i-th set vertex (1-based) is the first index whose inclusive prefix
+    count reaches i (``searchsorted``, left side).  Returns (worklist,
+    count): -1-padded, ``count`` the EXACT occupancy ``sum(mask)`` (when it
+    exceeds ``cap`` the worklist is truncated and the caller goes dense)."""
+    cs = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
+    count = cs[-1]
+    slots = torch.arange(1, cap + 1, dtype=torch.int32, device=mask.device)
+    wl = torch.searchsorted(cs, slots, out_int32=True)
+    return torch.where(slots <= count, wl, -1), count
+
+
+def worklist_to_mask(wl: torch.Tensor, num_vertices: int) -> torch.Tensor:
+    """Inverse of ``compact_mask`` for in-capacity masks (-1 padding
+    ignored)."""
+    return relax.mark_vertices(wl.clamp(0, num_vertices - 1), wl >= 0,
+                               num_vertices)
+
+
+def capacity_ladder(num_vertices: int, cap: int = 0) -> tuple[int, ...]:
+    """Worklist capacity rungs (ascending).  ``cap=0`` derives the top rung
+    as N/64 (>= 256, pow2-rounded); a small first rung keeps the common
+    few-vertex waves cheap while the top rung absorbs moderate cascades
+    before the dense fallback."""
+    if cap <= 0:
+        cap = max(256, csr_mod.next_pow2(max(num_vertices, 1)) // 64)
+    cap = min(csr_mod.next_pow2(cap), csr_mod.next_pow2(max(num_vertices, 1)))
+    low = max(256, cap // 16)
+    return (low, cap) if low < cap else (cap,)
+
+
+def edge_budget(cap: int) -> int:
+    """Per-rung edge/overflow capacity: 8 out-edges per worklist slot."""
+    return 8 * cap
+
+
+# ---------------------------------------------------- OUT-adjacency sidecar --
+class OutAdjacency:
+    """Backend-independent OUT-adjacency sidecar for the sparse push waves.
+
+    A ``SlicedEllPlanner`` with the roles swapped: planner *rows* are edge
+    SOURCES and the cells hold destination ids.  High-out-degree hubs spill
+    to the overflow lane, where ``osrc`` holds the *destination* (the
+    scatter target) and ``odst`` the *source row* (the frontier filter).
+    Per-row slices (``slice_rows=1``) and a high hub threshold, as the
+    reference: every wave pays O(overflow capacity) for the lane, so spills
+    must stay rare.  A derived view, rebuilt from the allocator's host
+    mirror on exhaustion or restore (never serialized)."""
+
+    def __init__(self, num_vertices: int, device: torch.device | str, *,
+                 slice_rows: int = 1, hub_k: int = 1024, init_k: int = 2):
+        self.n = num_vertices
+        self.device = torch.device(device)
+        self._knobs = dict(slice_rows=slice_rows, hub_k=hub_k, init_k=init_k)
+        self.planner = SlicedEllPlanner(num_vertices, **self._knobs)
+        self.state = SlicedEllState.from_host(
+            self.planner, self.planner.empty_host(), self.device)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _rebuild(self, alloc) -> None:
+        src, dst, w = alloc.active_coo()
+        self.state = SlicedEllState.from_host(
+            self.planner, self.planner.rebuild_host(dst, src, w),  # swapped
+            self.device)
+
+    def apply_adds(self, plan, alloc) -> None:
+        fresh = plan.fresh
+        sp = self.planner.plan_appends(
+            plan.src[fresh].astype(np.int64), plan.dst[fresh], plan.w[fresh])
+        if sp is None:
+            self._rebuild(alloc)
+            return
+        if len(sp.pos):
+            sliced_append(self.state, *map(self._dev, ingest.pad_pow2(
+                sp.pos, sp.rows, sp.kpos, sp.src, sp.w)))
+        if len(sp.opos):
+            sliced_spill(self.state, *map(self._dev, ingest.pad_pow2(
+                sp.opos, sp.osrc, sp.orows, sp.ow)))
+        if not fresh.all():
+            upd = ~fresh
+            sliced_update_min(self.state, *map(self._dev, ingest.pad_pow2(
+                plan.src[upd], plan.dst[upd], plan.w[upd])),
+                width=self.planner.max_width)
+
+    def apply_dels(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Tombstone deleted (padded) edges; rows are the edge SOURCES."""
+        sliced_delete(self.state, self._dev(src), self._dev(dst),
+                      width=self.planner.max_width)
+
+    def restore(self, alloc) -> None:
+        self.planner = SlicedEllPlanner(self.n, **self._knobs)
+        self._rebuild(alloc)
+
+
+# ------------------------------------------------------------- sparse waves --
+def sparse_push_wave(dist: torch.Tensor, parent: torch.Tensor,
+                     wl: torch.Tensor, ecs: torch.Tensor, ocs: torch.Tensor,
+                     st: SlicedEllState, *, ecap: int, ocap: int,
+                     num_vertices: int, use_kernel: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One gathered-edges relaxation wave over the worklist's OUT rows.
+
+    Each of the ``ecap`` edge slots binary-searches the worklist's inclusive
+    degree cumsum ``ecs`` for its (row, cell), so the candidate list covers
+    exactly the worklist rows' occupied cells; the frontier-live overflow
+    entries are compacted the same way through ``ocs`` into ``ocap`` slots.
+    Both lanes concatenate into ONE edge list relaxed by K3 (``use_kernel``)
+    or its plain version.  The caller (``ladder_wave``) guarantees both
+    budgets fit."""
+    dev = dist.device
+    c = wl.shape[0]
+    valid = wl >= 0
+    rows = wl.clamp(0, st.fill.shape[0] - 1)
+    rk = torch.where(valid, st.fill[rows], 0)
+    excl = ecs - rk                               # exclusive degree prefix
+    j = torch.arange(ecap, dtype=torch.int32, device=dev)
+    r = torch.searchsorted(ecs, j, right=True).clamp(0, c - 1)
+    evalid = j < ecs[-1]
+    kk = j - excl[r]
+    src = rows[r]
+    pos = (st.base[src] + kk).clamp(0, st.flat_w.shape[0] - 1)
+    e_src, e_nbr, e_w, e_val = src, st.flat_idx[pos], st.flat_w[pos], evalid
+    if ocap and st.ow.shape[0]:
+        # overflow lane (osrc = destination / scatter target, odst = source
+        # row under the sidecar's swapped roles); ocs already folds in the
+        # frontier filter, so the selected entries are live by construction
+        oslots = torch.arange(1, ocap + 1, dtype=torch.int32, device=dev)
+        osel = torch.searchsorted(ocs, oslots).clamp(0, st.ow.shape[0] - 1)
+        e_src = torch.cat([e_src, st.odst[osel]])
+        e_nbr = torch.cat([e_nbr, st.osrc[osel]])
+        e_w = torch.cat([e_w, st.ow[osel]])
+        e_val = torch.cat([e_val, oslots <= ocs[-1]])
+    fn = gathered_rows_relax if use_kernel else gathered_rows_relax_ref
+    best, arg = fn(dist[e_src], e_src, e_nbr, e_w, e_val,
+                   num_rows=num_vertices)
+    improved = best < dist
+    return (torch.where(improved, best, dist),
+            torch.where(improved, arg, parent), improved)
+
+
+def ladder_wave(dist: torch.Tensor, parent: torch.Tensor,
+                frontier: torch.Tensor, st: SlicedEllState, edges: EdgePool,
+                *, caps: tuple[int, ...], num_vertices: int,
+                use_kernel: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One wave through the capacity ladder: compact once at the top rung,
+    run the smallest rung whose vertex count, ELL cell total AND live
+    hub-overflow count all fit its budgets, else the exact dense
+    ``relax_round`` over the pool.  The three counts come back to the host
+    in one read.  All branches are bit-identical: the rung is a cost
+    choice."""
+    wl, count = compact_mask(frontier, cap=caps[-1])
+    rows = wl.clamp(0, st.fill.shape[0] - 1)
+    ecs = torch.cumsum(torch.where(wl >= 0, st.fill[rows], 0), 0,
+                       dtype=torch.int32)
+    olive = frontier[st.odst] & (st.ow < INF)
+    ocs = torch.cumsum(olive.to(torch.int32), 0, dtype=torch.int32)
+    count_h, etotal, ocnt = torch.stack([count, ecs[-1], ocs[-1]]).tolist()
+    for c in caps:
+        eb = edge_budget(c)
+        if count_h <= c and etotal <= eb and ocnt <= eb:
+            return sparse_push_wave(
+                dist, parent, wl[:c], ecs[:c], ocs, st, ecap=eb, ocap=eb,
+                num_vertices=num_vertices, use_kernel=use_kernel)
+    return relax.relax_round(dist, parent, edges, frontier,
+                             num_vertices=num_vertices)
+
+
+# ------------------------------------------------------------ sparse epochs --
+def sparse_relax_until_converged(
+    sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
+    frontier: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
+    use_kernel: bool = False,
+) -> tuple[SSSPState, RelaxStats]:
+    """Sparse rendering of ``relax.relax_until_converged``: the same
+    converged-loop driver and [N]-mask carry, each wave through the
+    capacity ladder.  (The reference also returns the summed per-wave
+    occupancy for its observability counters, which are not ported yet.)"""
+
+    def wave(dist, parent, frontier):
+        return ladder_wave(dist, parent, frontier, st, edges, caps=caps,
+                           num_vertices=num_vertices, use_kernel=use_kernel)
+
+    dist, parent, rounds, msgs = converged_loop(
+        sssp.dist, sssp.parent, frontier, wave)
+    return (SSSPState(dist=dist, parent=parent, source=sssp.source),
+            RelaxStats(rounds=rounds, messages=msgs))
+
+
+def sparse_invalidate_and_recompute(
+    sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
+    seed: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
+    use_doubling: bool = True, use_kernel: bool = False,
+) -> tuple[SSSPState, del_mod.DeleteStats]:
+    """Sparse deletion epoch — ``delete.invalidate_and_recompute``'s
+    structure (same marking, same dense bulk pull over the pool's in-edges,
+    which the OUT sidecar cannot serve and which runs once per epoch); only
+    the push recompute waves run through the ladder."""
+    if not bool(seed.any()):
+        return sssp, del_mod.empty_delete_stats(seed.device)
+    aff, inv_rounds, dist, parent = del_mod.invalidate(
+        sssp, seed, use_doubling=use_doubling)
+    dist, parent, improved = del_mod.pull_once(dist, parent, edges, aff,
+                                               num_vertices)
+    state, stats = sparse_relax_until_converged(
+        SSSPState(dist=dist, parent=parent, source=sssp.source), edges, st,
+        improved, num_vertices=num_vertices, caps=caps,
+        use_kernel=use_kernel)
+    return state, del_mod.DeleteStats(
+        invalidation_rounds=inv_rounds,
+        affected=aff.sum(),
+        recompute_rounds=stats.rounds + 1,
+        recompute_messages=stats.messages + improved.sum())

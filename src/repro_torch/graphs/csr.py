@@ -1,5 +1,5 @@
 """By-destination ELL builders (host-side numpy), copied from
-``repro.graphs.csr`` — only what the dense-ELL backend's rebuild uses.
+``repro.graphs.csr`` — what the dense-ELL and sliced backends' rebuilds use.
 
 For every dst row the ELL block holds a padded list of (in-neighbor id,
 weight); padding entries point at row 0 with +inf weight so they never win a
@@ -86,3 +86,108 @@ def ell_from_coo(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     fill = np.zeros(R, np.int32)
     fill[:n] = deg
     return idx, ww, fill
+
+
+def sliced_geometry(widths: list[int], slice_rows: int):
+    """Cell addressing of the flat sliced-ELL layout: returns
+    ``(offsets i64[S+1], rowk i32[R], base i64[R], total_cells)`` where row
+    r's cells occupy ``[base[r], base[r] + rowk[r])``.
+
+    This is THE addressing rule — shared by ``sliced_ell_from_coo`` (rebuild
+    placement) and the engine planner (incremental append positions); the
+    two must agree bit-for-bit or the device state silently corrupts.
+    """
+    wid = np.asarray(widths, np.int64)
+    offsets = slice_rows * np.r_[0, np.cumsum(wid)]
+    rowk = np.repeat(wid, slice_rows).astype(np.int32)
+    R = len(widths) * slice_rows
+    base = (np.repeat(offsets[:-1], slice_rows)
+            + (np.arange(R) % slice_rows) * rowk).astype(np.int64)
+    return offsets, rowk, base, int(offsets[-1])
+
+
+def width_runs(widths: tuple[int, ...] | list[int]) -> list[tuple[int, int]]:
+    """Maximal runs of equal-width slices, ``(k, n_slices)`` in row order:
+    each is one contiguous row-major ``(rows, k)`` block of the flat
+    buffer — one TPU ``pallas_call`` of K2, one K1 launch of the unfused
+    wave."""
+    runs: list[list[int]] = []
+    for k in widths:
+        if runs and runs[-1][0] == k:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+    return [(k, cnt) for k, cnt in runs]
+
+
+def sliced_ell_from_coo(
+    n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray, *,
+    slice_rows: int = 256, hub_k: int = 32, n_rows: int | None = None,
+    widths: list[int] | None = None, overflow_capacity: int | None = None,
+    row0: int = 0,
+):
+    """Hub-aware hybrid layout: flat sliced-ELL + COO overflow (by dst).
+
+    Rows are grouped into slices of ``slice_rows`` consecutive ids; each
+    slice is padded to its own pow2 width ``K_s`` (the slice's max in-degree
+    capped at ``hub_k``).  Rows with in-degree > hub_k are *hubs*: their
+    first ``hub_k`` in-neighbors (CSR order) stay in the slice, the surplus
+    spills into the COO overflow segment.  The ELL cells are flattened into
+    one 1-D buffer (slice s at offset ``slice_rows * sum(widths[:s])``, row-
+    major within the slice).
+
+    Returns ``(flat_idx i32[L], flat_w f32[L], fill i32[R], widths,
+    osrc i32[C], odst i32[C], ow f32[C], n_overflow)`` with
+    ``L = slice_rows * sum(widths)``, ``R = n_rows`` (ceil of n to a slice
+    multiple), ``C = overflow_capacity`` (pow2, >= surplus edge count).
+    Empty/padding cells carry idx 0 / w +inf; padded overflow entries carry
+    src=dst=0 / w=+inf — neither can win a min.  ``widths`` and
+    ``overflow_capacity`` override the tight defaults (the planner passes
+    its monotone-grown values); ``row0`` builds the vertex window
+    ``[row0, row0 + n)`` from globally addressed ``dst``.
+    """
+    assert slice_rows >= 1 and slice_rows == next_pow2(slice_rows), slice_rows
+    hub_k = next_pow2(max(hub_k, 1))
+    dst = np.asarray(dst, np.int64) - row0
+    assert not len(dst) or (dst.min() >= 0 and dst.max() < n), \
+        f"dst outside window [row0={row0}, row0+{n})"
+    indptr, cols, ws, _ = coo_to_csr(n, np.asarray(src), dst,
+                                     np.asarray(w), by="dst")
+    R = -(-max(n, 1) // slice_rows) * slice_rows if n_rows is None else n_rows
+    assert R >= n and R % slice_rows == 0, (R, n, slice_rows)
+    n_slices = R // slice_rows
+    deg = np.zeros(R, np.int64)
+    deg[:n] = np.diff(indptr)
+    capped = np.minimum(deg, hub_k)
+    slice_max = capped.reshape(n_slices, slice_rows).max(axis=1)
+    if widths is None:
+        widths = [next_pow2(int(max(k, 1))) for k in slice_max]
+    widths = [int(k) for k in widths]
+    assert len(widths) == n_slices, (len(widths), n_slices)
+    assert all(k == next_pow2(k) and k <= hub_k for k in widths), widths
+    assert all(int(m) <= k for m, k in zip(slice_max, widths)), \
+        (slice_max.tolist(), widths)
+
+    _, _, base, L = sliced_geometry(widths, slice_rows)
+    flat_idx = np.zeros(L, np.int32)
+    flat_w = np.full(L, PAD_W, np.float32)
+    rows, kpos = _csr_positions(indptr)
+    keep = kpos < hub_k
+    pos = base[rows[keep]] + kpos[keep]
+    flat_idx[pos] = cols[keep]
+    flat_w[pos] = ws[keep]
+
+    o_src, o_dst, o_w = cols[~keep], rows[~keep], ws[~keep]
+    n_over = len(o_src)
+    C = (next_pow2(max(2 * n_over, 8)) if overflow_capacity is None
+         else overflow_capacity)
+    assert C >= n_over, (C, n_over)
+    osrc = np.zeros(C, np.int32)
+    odst = np.zeros(C, np.int32)
+    ow = np.full(C, PAD_W, np.float32)
+    osrc[:n_over] = o_src
+    odst[:n_over] = o_dst
+    ow[:n_over] = o_w
+
+    fill = capped.astype(np.int32)
+    return flat_idx, flat_w, fill, widths, osrc, odst, ow, n_over

@@ -2,10 +2,45 @@
 — the ones the port's streams use.  The same seed gives the same arrays as
 the reference, so a stream built here replays bit-for-bit through both
 packages.
+
+* ``rmat`` — R-MAT with Graph500 parameters (a, b, c, d) = (0.57, 0.19,
+  0.19, 0.05), the paper's RMAT(20) source, weights U(0, 4) floored at
+  1e-3: power-law in-degree hubs, the sliced backend's workload;
+* ``erdos_renyi`` — uniform random digraphs.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def rmat(scale: int, edge_factor: int = 16, *, a: float = 0.57, b: float = 0.19,
+         c: float = 0.19, seed: int = 0, weights: tuple[float, float] = (0.0, 4.0),
+         dedup: bool = True) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """Graph500-style R-MAT. Returns (n, src, dst, w); weights in (lo, hi]."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = n * edge_factor
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    ab, abc = a + b, a + b + c
+    for bit in range(scale):
+        r = rng.random(m)
+        go_b = (r >= a) & (r < ab)
+        go_c = (r >= ab) & (r < abc)
+        go_d = r >= abc
+        src += ((go_c | go_d).astype(np.int64)) << bit
+        dst += ((go_b | go_d).astype(np.int64)) << bit
+    keep = src != dst  # drop self-loops (paper: simple graphs)
+    src, dst = src[keep], dst[keep]
+    if dedup:
+        key = src * n + dst
+        _, idx = np.unique(key, return_index=True)
+        idx.sort()
+        src, dst = src[idx], dst[idx]
+    lo, hi = weights
+    w = lo + (hi - lo) * rng.random(len(src)).astype(np.float32)
+    w = np.maximum(w, 1e-3).astype(np.float32)  # strictly positive (termination)
+    return n, src, dst, w
 
 
 def erdos_renyi(n: int, m: int, *, seed: int = 0,

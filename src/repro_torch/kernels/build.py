@@ -4,9 +4,10 @@ Each kernel source under ``kernels/*/csrc/`` exposes a plain C interface and
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
 loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.  The
 build runs at first use, from the repository's sources alone, into
-``build/kernels/`` at the repository root (git-ignored).  The library's file
-name carries a hash of the source and the flags, so an edited source
-rebuilds and a stale library is never loaded.
+``build/kernels/`` at the repository root (git-ignored); ``load_all`` starts
+one nvcc per source at once.  The library's file name carries a hash of the
+source, the headers beside it and the flags, so an edited source rebuilds
+and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -32,6 +35,23 @@ class Built:
     log: str         # nvcc/ptxas output (registers, spills) of that build
 
 
+def check_args(kernel: str, **args: tuple[torch.Tensor, torch.dtype]
+               ) -> torch.device:
+    """Raise ``ValueError`` unless every ``name=(tensor, dtype)`` is a
+    contiguous 1-D tensor of that dtype and all lie on one CUDA device;
+    returns the device."""
+    dev = next(iter(args.values()))[0].device
+    for name, (t, dtype) in args.items():
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{kernel}: tensors must share one CUDA device; "
+                             f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} expected a contiguous 1-D {dtype}; got "
+                f"{t.dtype} of shape {tuple(t.shape)}")
+    return dev
+
+
 def nvcc() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
     else the toolkit's default install location."""
@@ -44,24 +64,49 @@ def nvcc() -> str:
                        "are built from source at first use")
 
 
-def load(source: Path) -> Built:
-    """Compile ``source`` unless a library of the same hash exists, and load
-    it.  Callers cache the result (one load per process)."""
-    source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
+def _library(source: Path) -> Path:
+    """The library path for ``source``: its name carries a hash of the
+    source, of every header beside it (``*.cuh``) and of the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def load_all(sources: list[Path]) -> list[Built]:
+    """Compile every source that lacks a library of its hash — one nvcc
+    process per source, all started together — then load each.  Callers
+    cache the result (one load per process)."""
+    sources = [Path(s) for s in sources]
+    jobs = []
+    for source in sources:
+        out = _library(source)
+        if out.exists():
+            jobs.append((source, out, None, None, 0.0))
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(source)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {source.name}:\n{log}")
-        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
-    return Built(ctypes.CDLL(str(out)), out, seconds, log)
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(source)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((source, out, tmp, proc, time.perf_counter()))
+    # reap every nvcc before acting on any result, so a failure leaves no
+    # compiler running
+    logs = [(proc.communicate()[0], time.perf_counter() - t0)
+            if proc is not None else ("", 0.0)
+            for _, _, _, proc, t0 in jobs]
+    built = []
+    for (source, out, tmp, proc, _), (log, seconds) in zip(jobs, logs):
+        if proc is not None:
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed on {source.name}:\n{log}")
+            os.replace(tmp, out)   # atomic: a concurrent loader sees all
+        built.append(Built(ctypes.CDLL(str(out)), out, seconds, log))
+    return built
+
+
+def load(source: Path) -> Built:
+    """``load_all`` for one source."""
+    return load_all([source])[0]

@@ -1,0 +1,146 @@
+"""Fused hybrid sliced-ELL + overflow-COO wave (kernel K2) — wrapper of the
+hand-written Hopper kernel ``csrc/fused_sliced_relax.cu``, the port of the
+Pallas TPU kernel ``repro.kernels.relax.fused.fused_sliced_relax``; plus the
+run-group helper and the TPU kernel's cost model, copied from that module.
+
+``fused_sliced_relax(dist, active, flat_idx, flat_w, osrc, odst, ow, *,
+widths, slice_rows, base, rowk) -> (best f32[R], arg i32[R])`` computes
+exactly ``fused_sliced_relax_ref`` (ref.py): the frontier-masked ELL lane
+over the flat buffer, the overflow COO lane and the lane combine in one
+call, ``arg = INT_MAX`` where nothing is finite.  Tensors on the CPU take
+that plain version; tensors on a CUDA device launch the kernel or raise —
+there is no fallback.  ``fused_sliced_relax.launches`` counts kernel
+launches (a plain integer; callers reset it to 0 to count one run).
+
+The TPU kernel makes one ``pallas_call`` per distinct-width run and rescans
+the whole overflow segment in each; the CUDA kernel reads the segment once
+per wave (one 64-bit ``atomicMin`` per live entry) and then covers all rows
+in one launch, reading each row's ``base``/``rowk`` from the layout state.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.graphs.csr import width_runs
+from repro_torch.kernels import build
+from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
+
+SOURCE = Path(__file__).parent / "csrc" / "fused_sliced_relax.cu"
+
+
+def slice_run_groups(widths: tuple[int, ...] | list[int],
+                     slice_rows: int) -> list[tuple[int, int]]:
+    """Merge runs of equal-width slices and split each into a
+    multiple-of-256-rows main block plus a remainder: list of
+    ``(k, n_slices)`` groups, in row order (the reference's tiling)."""
+    per_blk = max(1, 256 // slice_rows)
+    groups: list[tuple[int, int]] = []
+    for k, cnt in width_runs(widths):
+        main = (cnt // per_blk) * per_blk
+        if main:
+            groups.append((k, main))
+        if cnt - main:
+            groups.append((k, cnt - main))
+    return groups
+
+
+def fused_cost(widths: tuple[int, ...] | list[int], slice_rows: int,
+               num_vertices: int, overflow_cap: int) -> dict[str, float]:
+    """The TPU kernel's analytic flop/byte model of one fused wave, summed
+    over its per-run calls (copied from the reference): every run re-reads
+    dist/active and rescans the whole overflow triplet.  The CUDA kernel
+    reads each input once per wave — ``wave_bytes`` is its model."""
+    C = max(overflow_cap, 1)
+    flops = 0.0
+    bytes_ = 0.0
+    for k, cnt in width_runs(widths):
+        rows_g = slice_rows * cnt
+        flops += 3.0 * rows_g * k + 4.0 * C
+        bytes_ += (5.0 * num_vertices       # dist f32 + active bool
+                   + 8.0 * rows_g * k       # idx i32 + w f32 tiles
+                   + 12.0 * C               # overflow triplet, per run
+                   + 8.0 * rows_g)          # best f32 + arg i32 out
+    return {"flops": flops, "bytes": bytes_,
+            "intensity": flops / max(bytes_, 1.0)}
+
+
+def wave_bytes(num_vertices: int, cells: int, live_cells: int,
+               overflow_cap: int, live_overflow: int, rows: int) -> int:
+    """Bytes one K2 wave must move, each input read once and each output
+    written once, counted on the layout's own data: dist + active (5N),
+    every weight (4L + 4C), the index of each finite-weight cell and the
+    source and row of each finite-weight overflow entry (4 live_L +
+    8 live_C; a +inf weight makes its candidate +inf whatever the index
+    says), best + arg (8R).  With every entry live it is 5N + 8L + 12C +
+    8R."""
+    return (5 * num_vertices + 4 * cells + 4 * live_cells
+            + 4 * overflow_cap + 8 * live_overflow + 8 * rows)
+
+
+@functools.cache
+def load() -> build.Built:
+    """Build (at first use) and bind the kernel library, once per process."""
+    built = build.load(SOURCE)
+    fn = built.lib.fused_sliced_relax_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong,
+                                            ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def fused_sliced_relax(dist: torch.Tensor, active: torch.Tensor,
+                       flat_idx: torch.Tensor, flat_w: torch.Tensor,
+                       osrc: torch.Tensor, odst: torch.Tensor,
+                       ow: torch.Tensor, *, widths: tuple[int, ...],
+                       slice_rows: int, base: torch.Tensor,
+                       rowk: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One hybrid wave over ``R = len(widths) * slice_rows`` rows: row r's
+    ELL cells are ``[base[r], base[r] + rowk[r])`` of the flat buffer (the
+    planner's geometry for ``widths``), its overflow entries those with
+    ``odst == r``; cell and overflow sources index ``dist``, ``odst`` lies
+    in [0, R).  ``active`` masks offer sources (all True for an unmasked
+    pull wave)."""
+    tensors = (dist, active, flat_idx, flat_w, osrc, odst, ow, base, rowk)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_sliced_relax_ref(dist, active, flat_idx, flat_w, osrc,
+                                      odst, ow, widths=widths,
+                                      slice_rows=slice_rows)
+    f32, i32 = torch.float32, torch.int32
+    dev = build.check_args(
+        "fused_sliced_relax", dist=(dist, f32), active=(active, torch.bool),
+        flat_idx=(flat_idx, i32), flat_w=(flat_w, f32), osrc=(osrc, i32),
+        odst=(odst, i32), ow=(ow, f32), base=(base, i32), rowk=(rowk, i32))
+    rows = len(widths) * slice_rows
+    if (base.shape[0] != rows or rowk.shape[0] != rows
+            or flat_idx.shape != flat_w.shape or dist.shape != active.shape
+            or not osrc.shape == odst.shape == ow.shape):
+        raise ValueError(
+            f"fused_sliced_relax: expected base/rowk ({rows},), flat_idx = "
+            f"flat_w, dist = active and osrc = odst = ow shapes; got "
+            f"{[tuple(t.shape) for t in tensors]}")
+    best = torch.empty(rows, dtype=f32, device=dev)
+    arg = torch.empty(rows, dtype=i32, device=dev)
+    if rows == 0:
+        return best, arg
+    key = torch.empty(rows, dtype=torch.int64, device=dev)
+    lib = load().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_sliced_relax_launch(
+            *(t.data_ptr() for t in (dist, active, flat_idx, flat_w, base,
+                                     rowk, osrc, odst, ow, key, best, arg)),
+            rows, ow.shape[0], max(widths), stream)
+    if err:
+        raise RuntimeError(f"fused_sliced_relax: kernel launch failed with "
+                           f"CUDA error {err}")
+    fused_sliced_relax.launches += 1
+    return best, arg
+
+
+fused_sliced_relax.launches = 0

@@ -1,7 +1,9 @@
-"""Plain-torch version of the ELLPACK min-plus relaxation kernel (K1), the
-counterpart of ``repro.kernels.relax.ref.ellpack_relax_ref``.
+"""Plain-torch versions of the relaxation kernels K1, K2 and K3 — what the
+CPU runs, and what ``chip_smoke.py`` and the card tests hold each CUDA
+kernel against.
 
-Semantics (one bulk "DistanceUpdate" wave in ELL layout):
+K1, the counterpart of ``repro.kernels.relax.ref.ellpack_relax_ref`` (one
+bulk "DistanceUpdate" wave in ELL layout):
 
     cand[i, k] = offers[nbr_idx[i, k]] + nbr_w[i, k]
     best[i]    = min_k cand[i, k]                      (+inf padded entries lose)
@@ -10,12 +12,28 @@ Semantics (one bulk "DistanceUpdate" wave in ELL layout):
 Ties break toward the smallest *neighbor id* — the segment path's
 smallest-src-id rule, so every backend picks bit-identical parents.  The CPU
 tests run this; ``chip_smoke.py`` holds the CUDA kernel against it.
+
+K2, ``fused_sliced_relax_ref``: one hybrid sliced-ELL + overflow-COO wave
+as the reference's unfused composition ``combine_lanes(sliced_gather_min,
+overflow_min)`` over ``offers = where(active, dist, inf)``; ``arg`` is
+INT_MAX where no candidate is finite.  The three lane functions live here
+and the sliced backend's unfused wave imports them.
+
+K3, ``gathered_rows_relax_ref``: the counterpart of
+``repro.kernels.relax.gather.gathered_rows_relax_ref`` — candidates
+``src_dist + w`` scatter-min'd into ``nbr`` rows, masked slots dropped,
+``arg`` = the smallest ``src_ids`` attaining the row min (INT_MAX if none).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
+from repro_torch.graphs.csr import width_runs
+
 _BIG = 2**31 - 1
+_INF = float("inf")
 
 
 def ellpack_relax_ref(offers: torch.Tensor, nbr_idx: torch.Tensor,
@@ -26,3 +44,92 @@ def ellpack_relax_ref(offers: torch.Tensor, nbr_idx: torch.Tensor,
     arg = torch.where(is_min, nbr_idx, _BIG).amin(dim=1)
     arg = torch.where(torch.isfinite(best), arg, -1)
     return best, arg.to(torch.int32)
+
+
+def _segment_min(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
+                 fill: float | int) -> torch.Tensor:
+    out = torch.full((num_segments,), fill, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_reduce_(0, seg.long(), vals, "amin", include_self=True)
+
+
+def sliced_gather_min(offers: torch.Tensor, flat_idx: torch.Tensor,
+                      flat_w: torch.Tensor, *, widths: tuple[int, ...],
+                      slice_rows: int,
+                      relax: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+                      = ellpack_relax_ref
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ELL lane of one hybrid wave: (best f32[R], arg i32[R]) for R =
+    len(widths) * slice_rows rows, arg the smallest minimizing neighbor id
+    (-1 where best is +inf, K1's rule).  Each run of equal-width slices is
+    one contiguous (rows, k) block of the flat buffer and one ``relax``
+    call (K1 or its plain version; the reference splits a run into 256-row
+    tiles, the rows are the same)."""
+    bests, args_ = [], []
+    off = 0
+    for k, cnt in width_runs(widths):
+        rows_g = slice_rows * cnt
+        blk = slice(off, off + rows_g * k)
+        b, a = relax(offers, flat_idx[blk].view(rows_g, k),
+                     flat_w[blk].view(rows_g, k))
+        bests.append(b)
+        args_.append(a)
+        off += rows_g * k
+    return torch.cat(bests), torch.cat(args_)
+
+
+def overflow_min(offers: torch.Tensor, osrc: torch.Tensor, odst: torch.Tensor,
+                 ow: torch.Tensor, nrows: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The overflow lane: a scatter-min over the hub surplus, INT_MAX where
+    a row gets no finite candidate.  ``odst`` holds row ids in [0, nrows)."""
+    ocand = offers[osrc] + ow              # +inf entries can never win
+    obest = _segment_min(ocand, odst, nrows, _INF)
+    ohit = (ocand == obest[odst]) & (ocand < _INF)
+    oarg = _segment_min(torch.where(ohit, osrc, _BIG), odst, nrows, _BIG)
+    return obest, oarg
+
+
+def combine_lanes(best: torch.Tensor, arg: torch.Tensor, obest: torch.Tensor,
+                  oarg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Min-combine the two lanes per row; parent ties break toward the
+    smallest in-neighbor id ACROSS both lanes (each lane already reports its
+    smallest minimizing id, so the combine is a scalar min per row)."""
+    comb = torch.minimum(best, obest)
+    ell_key = torch.where((best == comb) & (best < _INF), arg, _BIG)
+    coo_key = torch.where((obest == comb) & (obest < _INF), oarg, _BIG)
+    return comb, torch.minimum(ell_key, coo_key)
+
+
+def fused_sliced_relax_ref(dist: torch.Tensor, active: torch.Tensor,
+                           flat_idx: torch.Tensor, flat_w: torch.Tensor,
+                           osrc: torch.Tensor, odst: torch.Tensor,
+                           ow: torch.Tensor, *, widths: tuple[int, ...],
+                           slice_rows: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(best f32[R], arg i32[R]) for R = len(widths) * slice_rows rows."""
+    offers = torch.where(active, dist, _INF)
+    best, arg = sliced_gather_min(offers, flat_idx, flat_w, widths=widths,
+                                  slice_rows=slice_rows)
+    obest, oarg = overflow_min(offers, osrc, odst, ow, best.shape[0])
+    return combine_lanes(best, arg, obest, oarg)
+
+
+def gathered_rows_relax_ref(src_dist: torch.Tensor, src_ids: torch.Tensor,
+                            nbr: torch.Tensor, w: torch.Tensor,
+                            mask: torch.Tensor, *, num_rows: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked slots scatter into an extra row ``num_rows`` that is sliced
+    off — torch's scatter raises on an out-of-range index where the
+    reference's ``mode="drop"`` drops it."""
+    cand = torch.where(mask, src_dist + w, _INF)
+    tgt = torch.where(mask, nbr, num_rows).long()
+    best = torch.full((num_rows + 1,), _INF, dtype=torch.float32,
+                      device=cand.device)
+    best.scatter_reduce_(0, tgt, cand, "amin")
+    hit = (cand == best[tgt]) & (cand < _INF)
+    key = torch.where(hit, src_ids, _BIG).to(torch.int32)
+    arg = torch.full((num_rows + 1,), _BIG, dtype=torch.int32,
+                     device=cand.device)
+    arg.scatter_reduce_(0, tgt, key, "amin")
+    return best[:num_rows], arg[:num_rows]

@@ -156,9 +156,11 @@ def test_validate_state_and_stability_match_reference():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(relax_backend="sliced"), dict(relax_backend="auto"),
-    dict(wave_schedule="buckets"), dict(frontier_mode="sparse"),
-    dict(frontier_mode="auto"), dict(sources=(0, 1)),
+    dict(wave_schedule="buckets"),
+    dict(wave_schedule="buckets", relax_backend="sliced"),
+    dict(wave_schedule="buckets", frontier_mode="sparse"),
+    dict(wave_schedule="buckets", frontier_mode="auto"),
+    dict(sources=(0, 1)), dict(sources=(0, 1), relax_backend="auto"),
     dict(observability=True), dict(partitions=2)])
 def test_later_slices_raise_not_yet_ported(knobs):
     with pytest.raises(ValueError, match="not yet ported"):

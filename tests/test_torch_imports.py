@@ -25,8 +25,14 @@ for name in names:
     importlib.import_module(name)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
-print(len(names))
+print(" ".join(names))
 """
+
+# modules that later slices added: each must be among those walked
+SLICE_MODULES = ("repro_torch.core.backends.sliced",
+                 "repro_torch.core.frontier",
+                 "repro_torch.kernels.relax.fused",
+                 "repro_torch.kernels.relax.gather")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -34,7 +40,8 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20   # every submodule was walked
+    walked = out.stdout.split()
+    assert len(walked) >= 24 and set(SLICE_MODULES) <= set(walked)
 
 
 def _imported_modules(path: Path) -> set[str]:
