@@ -5,13 +5,18 @@
 
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit; build kernels K1 (``ellpack_relax``),
-     K2 (``fused_sliced_relax``) and K3 (``gathered_rows_relax``) from the
-     repository's CUDA sources, one nvcc per source, all started together;
+     K2 (``fused_sliced_relax``), K3 (``gathered_rows_relax``), K4
+     (``spmm_ell``) and K5 (``embedding_bag``) from the repository's CUDA
+     sources, one nvcc per source, all started together;
   2. each kernel against its plain torch version on the card, bit for bit,
      at edge cases (K1: K = 1, non-power-of-two K, K > 32, +inf rows,
      ties; K2: ragged run groups, empty and zero-length overflow lanes,
      all-+inf rows, ties across the lanes, inactive sources, rows without
-     entries; K3: ties, an empty and an all-masked edge list);
+     entries; K3: ties, an empty and an all-masked edge list; K4: K = 1,
+     K > 32, all-masked rows, -1 in masked cells, duplicate indices, ties
+     and NaN for max, live indices past either end, every agg, f32 and
+     bf16; K5: all-padded bags, L = 1, L > 32, repeated indices, a live
+     index past the end, f32 and bf16);
   3. the dense-ELL path: ``make_engine(relax_backend="ellpack",
      batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
      at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
@@ -36,7 +41,20 @@ Phases (any failure raises and exits non-zero):
      version at the shapes that path gave it; then the 2^16 RMAT
      sliding-window stream (DEL epochs too) sparse on K3 against sparse on
      the plain version;
-  7. the card line, a JSON ``kernels`` line, and as the last line
+  7. the neighbour-aggregation and embedding-bag entry points,
+     ``neighbor_reduce`` (K4) and ``bag_lookup`` (K5), forward and
+     backward, at the published widths of their two model families:
+     GraphSAGE-Reddit's ``minibatch_lg`` (1,024 seeds, fanout (15, 10),
+     d_feat 602; mean, f32 and bf16) and a full-graph layer over Reddit's
+     232,965 nodes (K = 25 neighbours drawn uniformly, F = 128, f32); DIN's ``train_batch`` (table
+     10,485,760 x 18, 65,536 bags of 100 slots, history lengths U[25,
+     100]; sum, f32 and bf16) and ``serve_p99`` (512 bags).  At each shape
+     the K4 and K5 counts are set to 0 just before the kernel route and
+     read just after; the output equals the plain route's bit for bit and
+     the gradient agrees within GRAD_RTOL; each kernel is timed beside its
+     plain version, its bound and ``F.embedding_bag`` (the same function
+     for sum and mean; never called by the port);
+  8. the card line, a JSON ``kernels`` line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing any result when torch sees no CUDA
@@ -60,6 +78,10 @@ EDGE_FACTOR = 8          # examples/streaming_sssp.py's RMAT edge factor
 WINDOW_FRAC, DELTA = 0.3, 0.3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# the backward of neighbor_reduce / bag_lookup scatters with index_add_,
+# whose atomics add in no fixed order on the card: the kernel route's
+# gradient against the plain route's, relative to the largest entry
+GRAD_RTOL = {"f32": 1e-5, "bf16": 2**-7}
 
 
 def card_line() -> str:
@@ -311,6 +333,113 @@ def k3_check(torch, args, num_rows) -> float:
                    gathered_rows_relax_ref(*args, num_rows=num_rows))
 
 
+def same_bits(torch, name, got, want) -> float:
+    """Kernel vs plain version on the same inputs: equal dtype and shape,
+    the same NaN positions and equal bits everywhere else.  Returns the
+    largest |got - want| over the non-NaN entries (0 when the bits match)."""
+    torch.cuda.synchronize()
+    got, want = got.detach(), want.detach()
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan()), f"{name}: NaN pattern differs"
+    diff = (got[~nan].float() - want[~nan].float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int16
+    assert torch.equal(got[~nan].view(ints), want[~nan].view(ints)), \
+        f"{name} differs from the plain version by up to {err}"
+    return err
+
+
+def k4_case(torch, seed, s, r, k, f, dtype, *, ties=False, nan=False):
+    """feats (s, f) and an ELL block (r, k): the first rows all masked, -1
+    in every masked cell, each row's second cell a duplicate of its first;
+    ``ties`` draws integer features, ``nan`` plants NaNs in live rows."""
+    rng = np.random.default_rng(seed)
+    feats = (rng.integers(-3, 4, (s, f)) if ties
+             else rng.standard_normal((s, f))).astype(np.float32)
+    idx = rng.integers(0, s, (r, k)).astype(np.int32)
+    if k > 1:
+        idx[:, 1] = idx[:, 0]
+    mask = rng.random((r, k)) < 0.7
+    mask[:3] = False
+    idx[~mask] = -1
+    if nan:
+        feats[idx[mask][:5], 1] = np.nan
+    return (torch.from_numpy(feats).to("cuda", dtype),
+            torch.from_numpy(idx).cuda(), torch.from_numpy(mask).cuda())
+
+
+def k5_case(torch, seed, v, b, l, d, dtype):
+    """table (v, d), bags (b, l): a quarter of the slots -1, the first two
+    bags all padding, the third one row repeated."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    idx = rng.integers(0, v, (b, l)).astype(np.int32)
+    idx[rng.random((b, l)) < 0.25] = -1
+    idx[:2] = -1
+    idx[2] = 5
+    return (torch.from_numpy(table).to("cuda", dtype),
+            torch.from_numpy(idx).cuda())
+
+
+def gather_edge_cases(torch) -> None:
+    """Phase 2 for K4 and K5."""
+    from repro_torch.kernels.embed_bag.embed_bag import embedding_bag
+    from repro_torch.kernels.embed_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.spmm.ref import spmm_ell_ref
+    from repro_torch.kernels.spmm.spmm import spmm_ell
+    dtypes = (torch.float32, torch.bfloat16)
+    # (s, r, k, f, ties): K = 1, K > 32 with F not a multiple of 4, ties,
+    # F = 1, F over one 128-feature chunk, the sampler's K = 15 at F = 602
+    k4 = [(40, 64, 1, 32, False), (300, 96, 40, 18, False),
+          (16, 128, 12, 24, True), (10, 8, 5, 1, True),
+          (1000, 512, 33, 130, False), (4096, 2048, 15, 602, False)]
+    n = 0
+    for i, (s, r, k, f, ties) in enumerate(k4):
+        for dtype in dtypes:
+            args = k4_case(torch, i, s, r, k, f, dtype, ties=ties)
+            for agg in ("sum", "mean", "max"):
+                same_bits(torch, "K4", spmm_ell(*args, agg=agg),
+                          spmm_ell_ref(*args, agg))
+                n += 1
+    args = k4_case(torch, 99, 50, 64, 9, 40, torch.float32, nan=True)
+    got = spmm_ell(*args, agg="max")
+    assert bool(got.isnan().any()), "K4 max lost the NaNs"
+    same_bits(torch, "K4 NaN", got, spmm_ell_ref(*args, "max"))
+    feats, idx, mask = k4_case(torch, 98, 50, 64, 9, 40, torch.float32)
+    mask[5:, :2] = True
+    idx[5:, 0], idx[5:, 1] = 50, -7         # live, past either end: clamped
+    for agg in ("sum", "mean", "max"):
+        same_bits(torch, "K4 clamp", spmm_ell(feats, idx, mask, agg=agg),
+                  spmm_ell_ref(feats, idx, mask, agg))
+    print(f"[2] K4 bit-identical to the plain version on {n + 4} cases "
+          f"(sum, mean, max; f32 and bf16; K in {sorted({c[2] for c in k4})}, "
+          f"F in {sorted({c[3] for c in k4})}; all-masked rows, -1 in masked "
+          f"cells, duplicate indices, integer ties, NaN for max, live "
+          f"indices past either end)")
+    # (v, b, l, d): DIN's D = 18 at L = 100, L = 1, L > 32 with D over one
+    # chunk, D = 1
+    k5 = [(500, 64, 100, 18), (40, 24, 1, 32), (300, 8, 45, 130),
+          (30, 10, 7, 1), (1 << 16, 4096, 100, 18)]
+    n = 0
+    for i, (v, b, l, d) in enumerate(k5):
+        for dtype in dtypes:
+            table, idx = k5_case(torch, i, v, b, l, d, dtype)
+            for agg in ("sum", "mean"):
+                same_bits(torch, "K5", embedding_bag(table, idx, agg=agg),
+                          embedding_bag_ref(table, idx, agg=agg))
+                n += 1
+    table, idx = k5_case(torch, 98, 30, 8, 45, 18, torch.float32)
+    idx[3:, 0] = 30                         # live, past the end: clamped
+    for agg in ("sum", "mean"):
+        same_bits(torch, "K5 clamp", embedding_bag(table, idx, agg=agg),
+                  embedding_bag_ref(table, idx, agg=agg))
+    print(f"[2] K5 bit-identical to the plain version on {n + 2} cases (sum, "
+          f"mean; f32 and bf16; L in {sorted({c[2] for c in k5})}, D in "
+          f"{sorted({c[3] for c in k5})}; all-padded bags, a repeated row, a "
+          f"live index past the end)")
+
+
 def kernel_edge_cases(torch) -> None:
     from repro_torch.kernels.relax import relax as k1
     from repro_torch.kernels.relax.ref import ellpack_relax_ref
@@ -368,6 +497,7 @@ def kernel_edge_cases(torch) -> None:
     print(f"[2] K3 bit-identical to the plain version on {len(k3_cases)} "
           f"cases (ties, an all-masked and an empty edge list, up to "
           f"E = 2^20)")
+    gather_edge_cases(torch)
 
 
 # ------------------------------------------------------------------ phases --
@@ -652,19 +782,184 @@ def sparse_cross_check(torch) -> None:
           f"{got[-1].epoch_stats})")
 
 
+# ------------------------------------------ phase 7: the K4 and K5 paths --
+DIN_ITEMS, DIN_DIM, DIN_SLOTS = 10 * 1024 * 1024, 18, 100   # configs/din.py
+
+
+def minibatch_lg_block(rng):
+    """GraphSAGE-Reddit ``minibatch_lg``'s aggregation block in the
+    sampler's padded subgraph (``subgraph_capacity(1024, (15, 10))`` =
+    169,984 slots): rows are the 1,024 seeds and their 15,360 hop-1 nodes.
+    A seed's 15 cells point at distinct hop-1 slots, a hop-1 node's first
+    10 at distinct hop-2 slots and its other 5 are masked -1s, in seeded
+    random order.  Returns (slots, idx)."""
+    b, (f1, f2) = 1024, (15, 10)
+    hop1 = b * f1
+    idx = np.full((b + hop1, f1), -1, np.int32)
+    idx[:b] = (b + rng.permutation(hop1)).reshape(b, f1)
+    idx[b:, :f2] = (b + hop1 + rng.permutation(hop1 * f2)).reshape(hop1, f2)
+    return b * (1 + f1 + f1 * f2), idx
+
+
+def din_bags(rng, bags: int):
+    """DIN histories: lengths U[25, 100] (``train/data.py``'s recipe),
+    item ids uniform over the table, -1 after each history."""
+    idx = rng.integers(0, DIN_ITEMS, (bags, DIN_SLOTS)).astype(np.int32)
+    lens = rng.integers(DIN_SLOTS // 4, DIN_SLOTS + 1, bags)
+    idx[np.arange(DIN_SLOTS)[None, :] >= lens[:, None]] = -1
+    return idx
+
+
+def gather_shape(torch, label, fns, leaf, rest, live, agg, counters):
+    """One phase-7 shape.  ``fns`` = (entry point, kernel wrapper, plain
+    version).  The entry point runs forward and backward on the kernel
+    route (``use_kernel=None``), every count in ``counters`` set to 0 just
+    before and read just after, then on the plain route; outputs bit for
+    bit, gradients within GRAD_RTOL of the largest entry.  Then the kernel,
+    its plain version and ``F.embedding_bag`` over the live indices are
+    timed with CUDA events, and the bound is counted on this run's data:
+    the distinct live rows, the output, and for K4 the mask and the live
+    cells' indices (a masked cell's index is never read), for K5 every
+    index (a padding slot is found by reading it)."""
+    import torch.nn.functional as F
+    entry, kernel, plain_fn = fns
+    dt = "f32" if leaf.dtype == torch.float32 else "bf16"
+    rows, width = live.shape[0], leaf.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    w = torch.randn((rows, width), generator=gen, device="cuda").to(leaf.dtype)
+    for c in counters:
+        c.launches = 0
+    x = leaf.detach().requires_grad_(True)
+    out = entry(x, *rest, agg)
+    (g,) = torch.autograd.grad(out, x, w)
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    x = leaf.detach().requires_grad_(True)
+    plain = entry(x, *rest, agg, False)
+    (pg,) = torch.autograd.grad(plain, x, w)
+    err = same_bits(torch, label, out, plain)
+    scale = float(pg.float().abs().max())
+    grad_err = float((g.float() - pg.float()).abs().max()) / scale
+    assert grad_err <= GRAD_RTOL[dt], f"{label}: gradient off by {grad_err}"
+    del x, out, g, plain, pg, w
+
+    flat = rest[0][live].long()              # live indices, in row order
+    offsets = torch.zeros(rows, dtype=torch.long, device="cuda")
+    offsets[1:] = live.sum(1).cumsum(0)[:-1]
+    ms = cuda_ms(torch, lambda: kernel(leaf, *rest, agg=agg), 20)
+    plain_ms = cuda_ms(torch, lambda: plain_fn(leaf, *rest, agg=agg), 3)
+    library_ms = cuda_ms(torch, lambda: F.embedding_bag(
+        flat, leaf, offsets, mode=agg), 20)
+    distinct = int(torch.unique(flat).numel())
+    elt = leaf.element_size()
+    index_bytes = (rest[1].numel() + 4 * flat.numel() if len(rest) == 2
+                   else 4 * rest[0].numel())
+    nbytes = distinct * width * elt + rows * width * elt + index_bytes
+    ops = flat.numel() * width + (rows * width if agg == "mean" else 0)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"[7] {label}: R={rows} K={live.shape[1]} width={width} "
+          f"({flat.numel()} live cells, {distinct} distinct rows), {agg}: "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, F.embedding_bag "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); output bit-identical, "
+          f"gradient within {grad_err:.2e} of the largest entry; launches "
+          f"{launches}")
+    return launches, {"shape": label, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms, "max_abs_err": err,
+                      "grad_rel_err": grad_err,
+                      "live_cells": flat.numel(), "distinct_rows": distinct}
+
+
+def gather_entry(name, source, replaces, shapes):
+    """A ``kernels`` record: launches summed over the shapes, the largest
+    error, the times of the first (headline) shape, and every shape's
+    numbers."""
+    head = shapes[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(x["launches"] for x in shapes),
+            "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            **{k: head[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "check": "bit-identical", "headline": head["shape"],
+            "shapes": shapes}
+
+
+def aggregation_path(torch):
+    """Phase 7: ``neighbor_reduce`` (K4) at GraphSAGE-Reddit's widths and
+    ``bag_lookup`` (K5) at DIN's, forward and backward."""
+    from repro_torch.kernels.embed_bag.embed_bag import embedding_bag
+    from repro_torch.kernels.embed_bag.ops import bag_lookup
+    from repro_torch.kernels.embed_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.spmm.ops import neighbor_reduce
+    from repro_torch.kernels.spmm.ref import spmm_ell_ref
+    from repro_torch.kernels.spmm.spmm import spmm_ell
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    counters = [spmm_ell, embedding_bag]
+    shapes = {0: [], 1: []}
+
+    def run(which, label, leaf, rest, live, agg):
+        fns = ((neighbor_reduce, spmm_ell, spmm_ell_ref) if which == 0 else
+               (bag_lookup, embedding_bag, embedding_bag_ref))
+        launches, rec = gather_shape(torch, label, fns, leaf, rest, live,
+                                     agg, counters)
+        assert launches[which] > 0 and launches[1 - which] == 0, \
+            f"{label}: launches {launches}"
+        shapes[which].append({**rec, "launches": launches[which]})
+
+    s, idx = minibatch_lg_block(rng)
+    idx = torch.from_numpy(idx).cuda()
+    feats = torch.randn((s, 602), generator=gen, device="cuda")
+    for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        run(0, f"K4 GraphSAGE-Reddit minibatch_lg {dt}", feats.to(dtype),
+            (idx, idx >= 0), idx >= 0, "mean")
+    # Reddit's nodes, the paper's sample size 25; neighbour ids uniform
+    # over the nodes (a stand-in, as benchmarks/run.py draws them), so
+    # rows are reused less from L2 than Reddit's skewed degrees would
+    n = 232_965
+    idx = torch.from_numpy(rng.integers(0, n, (n, 25)).astype(np.int32))
+    idx = idx.cuda()
+    feats = torch.randn((n, 128), generator=gen, device="cuda")
+    live = torch.ones_like(idx, dtype=torch.bool)
+    run(0, "K4 Reddit full-graph layer (uniform ids) f32", feats,
+        (idx, live), live,
+        "mean")
+    del feats, idx, live
+    table = torch.randn((DIN_ITEMS, DIN_DIM), generator=gen, device="cuda")
+    for bags, shape in ((65_536, "train_batch"), (512, "serve_p99")):
+        idx = torch.from_numpy(din_bags(rng, bags)).cuda()
+        for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            run(1, f"K5 DIN {shape} {dt}", table.to(dtype), (idx,),
+                idx >= 0, "sum")
+    print(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s")
+    return [gather_entry(
+                "spmm_ell", "src/repro_torch/kernels/spmm/csrc/spmm_ell.cu",
+                "src/repro/kernels/spmm/spmm.py:55", shapes[0]),
+            gather_entry(
+                "embedding_bag",
+                "src/repro_torch/kernels/embed_bag/csrc/embedding_bag.cu",
+                "src/repro/kernels/embed_bag/embed_bag.py:49", shapes[1])]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    from repro_torch.kernels.embed_bag import embed_bag
     from repro_torch.kernels.relax import fused, gather, relax
+    from repro_torch.kernels.spmm import spmm
 
     # ---- 1. card, build
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    for b in build.load_all([relax.SOURCE, fused.SOURCE, gather.SOURCE]):
+    for b in build.load_all([relax.SOURCE, fused.SOURCE, gather.SOURCE,
+                             spmm.SOURCE, embed_bag.SOURCE]):
         regs = [ln.split(":")[-1].strip() for ln in b.log.splitlines()
                 if "registers" in ln]
         print(f"[1] {b.path.name}: nvcc {b.seconds:.2f} s; ptxas {regs}")
@@ -679,7 +974,10 @@ def main() -> int:
     kernels.append(sparse_path(torch))
     sparse_cross_check(torch)
 
-    # ---- 7. result lines
+    # ---- 7. the neighbour-aggregation and embedding-bag entry points
+    kernels.extend(aggregation_path(torch))
+
+    # ---- 8. result lines
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.  The
 build runs at first use, from the repository's sources alone, into
 ``build/kernels/`` at the repository root (git-ignored); ``load_all`` starts
 one nvcc per source at once.  The library's file name carries a hash of the
-source, the headers beside it and the flags, so an edited source rebuilds
-and a stale library is never loaded.
+source, the headers beside it, the headers shared between kernels
+(``kernels/csrc/``) and the flags, so an edited source rebuilds and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SHARED_HEADERS = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,9 +68,11 @@ def nvcc() -> str:
 
 def _library(source: Path) -> Path:
     """The library path for ``source``: its name carries a hash of the
-    source, of every header beside it (``*.cuh``) and of the flags."""
+    source, of every header beside it or shared (``*.cuh``) and of the
+    flags."""
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    for header in sorted([*source.parent.glob("*.cuh"),
+                          *SHARED_HEADERS.glob("*.cuh")]):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"

@@ -32,7 +32,11 @@ print(" ".join(names))
 SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.core.frontier",
                  "repro_torch.kernels.relax.fused",
-                 "repro_torch.kernels.relax.gather")
+                 "repro_torch.kernels.relax.gather",
+                 "repro_torch.kernels.spmm.ops",
+                 "repro_torch.kernels.spmm.spmm",
+                 "repro_torch.kernels.embed_bag.ops",
+                 "repro_torch.kernels.embed_bag.embed_bag")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
