@@ -12,11 +12,15 @@ Phases (any failure raises and exits non-zero):
      at edge cases (K1: K = 1, non-power-of-two K, K > 32, +inf rows,
      ties; K2: ragged run groups, empty and zero-length overflow lanes,
      all-+inf rows, ties across the lanes, inactive sources, rows without
-     entries; K3: ties, an empty and an all-masked edge list; K4: K = 1,
-     K > 32, all-masked rows, -1 in masked cells, duplicate indices, ties
-     and NaN for max, live indices past either end, every agg, f32 and
-     bf16; K5: all-padded bags, L = 1, L > 32, repeated indices, a live
-     index past the end, f32 and bf16);
+     entries, a width-1 slice beside width-32 ones, slices of fewer cells
+     than a warp, runs ending inside a chunk, +inf tombstones between live
+     cells, an all-padding slice, slices wider than a warp; K3: ties, an
+     empty and an all-masked edge list; K4: K = 1, K > 32, K not a multiple
+     of the rows in flight, all-masked rows, -1 in masked cells, duplicate
+     indices, ties and NaN for max, live indices past either end, every
+     agg, f32 and bf16; K5: all-padded bags, L = 1, L > 32, L = 37, B = 1,
+     padding inside and after a bag, DIN's serve_p99 widths, repeated
+     indices, a live index past the end, f32 and bf16);
   3. the dense-ELL path: ``make_engine(relax_backend="ellpack",
      batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
      at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
@@ -24,19 +28,21 @@ Phases (any failure raises and exits non-zero):
      Dijkstra; K1 against its plain version and timed on the final block;
      the host control plane (allocator + ELL planner) replayed alone; the
      path re-run under torch.profiler for its device time;
-  4. the hub path: ``relax_backend="auto", sliced_fused=True`` over the
-     RMAT(20) stream of the same recipe (edge factor 8, seed 7; the dense
-     ELL block falls back to the sliced layout at its first rebuild), K1
-     and K2 counts reset just before and read just after; Dijkstra check;
-     K2 against its plain version and timed on the final layout; the host
-     control plane (allocator + sliced planner) replayed alone; the path
-     re-run under torch.profiler for its device time;
-  5. at 2^16 on the RMAT recipe: auto + K2, sliced on K1 per run of slices,
-     sliced plain and segment engines identical at every query;
+  4. the hub path: ``relax_backend="auto"`` with no kernel flag (the card's
+     default is K2) over the RMAT(20) stream of the same recipe (edge
+     factor 8, seed 7; the dense ELL block falls back to the sliced layout
+     at its first rebuild), K1 and K2 counts reset just before and read
+     just after; Dijkstra check; K2 against its plain version and timed on
+     the final layout; the host control plane (allocator + sliced planner)
+     replayed alone; the path re-run under torch.profiler for its device
+     time and K2's share of it;
+  5. at 2^16 on the RMAT recipe: auto on K2 (the default), sliced on K1 per
+     run of slices, sliced plain and segment engines identical at every
+     query;
   6. the sparse frontier: the localized stream at 2^20 (``rmat(20, 4,
      seed=11)`` ingested first, then 48 batches of 8 fresh edges inside a
-     random 1k window) through ``frontier_mode="sparse",
-     frontier_kernel=True`` against a dense segment engine, K3's count reset
+     random 1k window) through ``frontier_mode="sparse"`` with no kernel
+     flag (K3 by default) against a dense segment engine, K3's count reset
      just before the batches and read just after; K3 against its plain
      version at the shapes that path gave it; then the 2^16 RMAT
      sliding-window stream (DEL epochs too) sparse on K3 against sparse on
@@ -53,7 +59,9 @@ Phases (any failure raises and exits non-zero):
      read just after; the output equals the plain route's bit for bit and
      the gradient agrees within GRAD_RTOL; each kernel is timed beside its
      plain version, its bound and ``F.embedding_bag`` (the same function
-     for sum and mean; never called by the port);
+     for sum and mean; never called by the port): back-to-back CUDA
+     events, device time per call (a CUDA graph of 20 calls replayed, every
+     kernel of the call) and host time per call (the submission alone);
   8. the card line, a JSON ``kernels`` line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -159,16 +167,21 @@ def control_plane_seconds(e: int, log, planner, plan) -> float:
 
 def device_profile(torch, eng, log):
     """``eng`` driven over ``log`` under torch.profiler (CUDA activity
-    only): total device time in seconds and the top device ops as (name,
-    seconds, count).  The profiler only slows the host."""
+    only): total device time in seconds and every device op as (name,
+    seconds, count), largest first.  The profiler only slows the host."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.ingest_log(log)
         torch.cuda.synchronize()
     ops = sorted(prof.key_averages(), key=lambda x: -x.self_device_time_total)
     total = sum(x.self_device_time_total for x in ops) / 1e6
-    return total, [(x.key[:48], x.self_device_time_total / 1e6, x.count)
-                   for x in ops[:5]]
+    return total, [(x.key, x.self_device_time_total / 1e6, x.count)
+                   for x in ops]
+
+
+def top_ops(ops, n: int = 5) -> str:
+    return "; ".join(f"{name[:48]} {sec:.3f} s x{cnt}"
+                     for name, sec, cnt in ops[:n])
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -182,6 +195,62 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one fn() call: ``calls`` calls captured in one CUDA
+    graph (every kernel of a library call included), the graph replayed
+    ``replays`` times back to back between CUDA events, over calls x
+    replays.  The host submits one replay per ``calls`` calls, so this is
+    the device's time, launch gaps inside the graph included.  (Short
+    torch.profiler sessions after long ones were seen to drop kernel
+    records, so the profiler is not used here.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def per_launch_ms(torch, fn, calls: int = 20) -> list[tuple[str, float]]:
+    """Device time per launch of each kernel (and memset) of fn(), from
+    torch.profiler over ``calls`` calls: each op's total over its own
+    count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(x.key, x.self_device_time_total / 1e3 / x.count)
+            for x in prof.key_averages() if x.self_device_time_total > 0]
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one fn() call: the submission alone, ``calls`` calls
+    back to back on the host clock with no synchronisation inside."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def sync_us(torch, n: int) -> float:
@@ -271,11 +340,13 @@ def k1_case(torch, seed: int, n: int, rows: int, k: int, ties: bool):
 
 
 def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
-            active_frac=1.0, dead_frac=0.0):
-    """A random flat sliced layout + overflow lane on the card; ``ties``
-    draws integer offers and weights, ``dead_frac`` of the rows get no
-    live cell."""
+            active_frac=1.0, dead_frac=0.0, tombstones=False):
+    """A random flat sliced layout + overflow lane on the card (n <= rows);
+    ``ties`` draws integer offers and weights, ``dead_frac`` of the rows get
+    no live cell, ``tombstones`` puts +inf between every row's live cells
+    and makes the second slice all padding."""
     from repro_torch.graphs import csr
+    from repro_torch.kernels.relax.fused import block_table
     rng = np.random.default_rng(seed)
     L = slice_rows * sum(widths)
     wpool = np.asarray([0.5, 1.0] if ties else rng.uniform(0.1, 2.0, 8),
@@ -286,6 +357,11 @@ def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
     _, rowk, base, _ = csr.sliced_geometry(list(widths), slice_rows)
     for r in np.nonzero(rng.random(len(base)) < dead_frac)[0]:
         flat_w[base[r]:base[r] + rowk[r]] = np.inf
+    if tombstones:
+        for r in range(len(base)):
+            flat_w[base[r] + 1:base[r] + rowk[r]:2] = np.inf
+        flat_w[base[slice_rows]:base[min(2 * slice_rows, len(base) - 1)]] \
+            = np.inf
     osrc = rng.integers(0, n, ocap).astype(np.int32)
     odst = rng.integers(0, n, ocap).astype(np.int32)
     ow = np.where(rng.random(ocap) < 0.7, rng.choice(wpool, ocap),
@@ -297,9 +373,9 @@ def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
     active = rng.random(n) < active_frac
     t = [torch.from_numpy(a).cuda() for a in
          (dist, active, flat_idx, flat_w, osrc, odst, ow,
-          base.astype(np.int32), rowk)]
+          block_table(widths, slice_rows))]
     return t[:7], dict(widths=tuple(widths), slice_rows=slice_rows,
-                       base=t[7], rowk=t[8])
+                       blocks=t[7])
 
 
 def k2_check(torch, args, kw) -> float:
@@ -369,15 +445,20 @@ def k4_case(torch, seed, s, r, k, f, dtype, *, ties=False, nan=False):
             torch.from_numpy(idx).cuda(), torch.from_numpy(mask).cuda())
 
 
-def k5_case(torch, seed, v, b, l, d, dtype):
-    """table (v, d), bags (b, l): a quarter of the slots -1, the first two
-    bags all padding, the third one row repeated."""
+def k5_case(torch, seed, v, b, l, d, dtype, tail=False):
+    """table (v, d), bags (b, l): a quarter of the slots -1 and, past two
+    bags, the first two bags all padding and the third one row repeated;
+    ``tail`` also pads each bag after a random length in [1, l]."""
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((v, d)).astype(np.float32)
     idx = rng.integers(0, v, (b, l)).astype(np.int32)
     idx[rng.random((b, l)) < 0.25] = -1
-    idx[:2] = -1
-    idx[2] = 5
+    if tail:
+        lens = rng.integers(1, l + 1, b)
+        idx[np.arange(l)[None, :] >= lens[:, None]] = -1
+    if b > 2:
+        idx[:2] = -1
+        idx[2] = 5
     return (torch.from_numpy(table).to("cuda", dtype),
             torch.from_numpy(idx).cuda())
 
@@ -390,10 +471,12 @@ def gather_edge_cases(torch) -> None:
     from repro_torch.kernels.spmm.spmm import spmm_ell
     dtypes = (torch.float32, torch.bfloat16)
     # (s, r, k, f, ties): K = 1, K > 32 with F not a multiple of 4, ties,
-    # F = 1, F over one 128-feature chunk, the sampler's K = 15 at F = 602
+    # F = 1, F over one 128-feature chunk, the sampler's K = 15 at F = 602;
+    # K not a multiple of the rows in flight (37 at 16 lanes, 17 at 4)
     k4 = [(40, 64, 1, 32, False), (300, 96, 40, 18, False),
           (16, 128, 12, 24, True), (10, 8, 5, 1, True),
-          (1000, 512, 33, 130, False), (4096, 2048, 15, 602, False)]
+          (1000, 512, 33, 130, False), (4096, 2048, 15, 602, False),
+          (500, 256, 37, 64, False), (200, 128, 17, 16, True)]
     n = 0
     for i, (s, r, k, f, ties) in enumerate(k4):
         for dtype in dtypes:
@@ -417,14 +500,19 @@ def gather_edge_cases(torch) -> None:
           f"F in {sorted({c[3] for c in k4})}; all-masked rows, -1 in masked "
           f"cells, duplicate indices, integer ties, NaN for max, live "
           f"indices past either end)")
-    # (v, b, l, d): DIN's D = 18 at L = 100, L = 1, L > 32 with D over one
-    # chunk, D = 1
-    k5 = [(500, 64, 100, 18), (40, 24, 1, 32), (300, 8, 45, 130),
-          (30, 10, 7, 1), (1 << 16, 4096, 100, 18)]
+    # (v, b, l, d, tail): DIN's D = 18 at L = 100, L = 1, L > 32 with D
+    # over one chunk, D = 1; with padding after each bag too: DIN's
+    # serve_p99 widths, L = 37 and L = 1 (not multiples of the 16 rows in
+    # flight), B = 1
+    k5 = [(500, 64, 100, 18, False), (40, 24, 1, 32, False),
+          (300, 8, 45, 130, False), (30, 10, 7, 1, False),
+          (1 << 16, 4096, 100, 18, False), (10_000, 512, 100, 18, True),
+          (300, 64, 37, 18, True), (50, 16, 1, 18, True),
+          (100, 1, 100, 18, True)]
     n = 0
-    for i, (v, b, l, d) in enumerate(k5):
+    for i, (v, b, l, d, tail) in enumerate(k5):
         for dtype in dtypes:
-            table, idx = k5_case(torch, i, v, b, l, d, dtype)
+            table, idx = k5_case(torch, i, v, b, l, d, dtype, tail)
             for agg in ("sum", "mean"):
                 same_bits(torch, "K5", embedding_bag(table, idx, agg=agg),
                           embedding_bag_ref(table, idx, agg=agg))
@@ -436,8 +524,9 @@ def gather_edge_cases(torch) -> None:
                   embedding_bag_ref(table, idx, agg=agg))
     print(f"[2] K5 bit-identical to the plain version on {n + 2} cases (sum, "
           f"mean; f32 and bf16; L in {sorted({c[2] for c in k5})}, D in "
-          f"{sorted({c[3] for c in k5})}; all-padded bags, a repeated row, a "
-          f"live index past the end)")
+          f"{sorted({c[3] for c in k5})}, B in {sorted({c[1] for c in k5})}; "
+          f"all-padded bags, padding inside and after bags, a repeated row, "
+          f"a live index past the end)")
 
 
 def kernel_edge_cases(torch) -> None:
@@ -470,6 +559,19 @@ def kernel_edge_cases(torch) -> None:
                                       ocap=16, active_frac=0.0)),
         ("wide hub slices", dict(widths=(32,) * 8 + (1,) * 8,
                                  slice_rows=256, n=4096, ocap=1 << 16)),
+        ("a width-1 slice beside width-32 ones",
+         dict(widths=(32, 32, 1, 32), slice_rows=64, n=256, ocap=64,
+              ties=True, active_frac=0.8)),
+        ("slices of fewer cells than a warp",
+         dict(widths=(2,), slice_rows=8, n=8, ocap=4)),
+        ("runs ending inside a chunk",
+         dict(widths=(1,) * 5 + (4,) * 33, slice_rows=8, n=300, ocap=32)),
+        ("tombstones between live cells, an all-padding slice",
+         dict(widths=(8, 4, 32, 1, 8), slice_rows=64, n=320, ocap=32,
+              ties=True, tombstones=True)),
+        ("slices wider than a warp",
+         dict(widths=(64, 2, 64, 128), slice_rows=16, n=64, ocap=16,
+              ties=True, active_frac=0.7)),
     ]
     for i, (_, c) in enumerate(k2_cases):
         c = dict(c)
@@ -551,7 +653,7 @@ def dense_ell_path(torch):
                                               relax_backend="ellpack"), log)
     print(f"[3] device time (profiled re-run): {dev_s:.3f} s = "
           f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
-          + "; ".join(f"{name} {sec:.3f} s x{cnt}" for name, sec, cnt in top))
+          + top_ops(top))
     return {"name": "ellpack_relax", "route": "cuda",
             "source": "src/repro_torch/kernels/relax/csrc/ellpack_relax.cu",
             "replaces": "src/repro/kernels/relax/relax.py:49",
@@ -574,7 +676,7 @@ def hub_path(torch):
     print(f"[4] RMAT stream: n={n} edges={e} events={len(log)} (topology "
           f"{n_topo}, dels {n_dels}) source={source}; built in "
           f"{time.perf_counter() - t0:.1f} s")
-    knobs = dict(relax_backend="auto", sliced_fused=True)
+    knobs = dict(relax_backend="auto")     # K2 by default on the card
     eng = engine(n, e, source, **knobs)
     wall, res, (l1, l2) = run_path(torch, eng, log,
                                    [k1.ellpack_relax, k2.fused_sliced_relax])
@@ -597,14 +699,19 @@ def hub_path(torch):
     dist = eng.state.sssp.dist
     active = torch.ones_like(dist, dtype=torch.bool)   # an unmasked pull wave
     args = (dist, active, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow)
-    kw = dict(widths=tuple(pl.widths), slice_rows=pl.sr, base=st.base,
-              rowk=st.rowk)
+    kw = dict(widths=tuple(pl.widths), slice_rows=pl.sr, blocks=st.blocks)
     err = k2_check(torch, args, kw)
     ms = cuda_ms(torch, lambda: k2.fused_sliced_relax(*args, **kw), 50)
+    passes = per_launch_ms(torch, lambda: k2.fused_sliced_relax(*args, **kw))
     plain_ms = cuda_ms(torch, lambda: fused_sliced_relax_ref(
         *args, widths=kw["widths"], slice_rows=pl.sr), 3)
     live_l = int(torch.isfinite(st.flat_w).sum())
     live_c = int(torch.isfinite(st.ow).sum())
+    per_row = torch.bincount(st.odst[torch.isfinite(st.ow)].long(),
+                             minlength=1)
+    print(f"[4] overflow lane at the end: {live_c} live entries on "
+          f"{int((per_row > 0).sum())} rows, at most {int(per_row.max())} "
+          f"on one row (one atomic word each row)")
     nbytes = k2.wave_bytes(n, st.flat_w.numel(), live_l, st.ow.numel(),
                            live_c, pl.rows)
     bound_ms, bound_by = bound(nbytes, 2 * (live_l + live_c))
@@ -614,7 +721,9 @@ def hub_path(torch):
           f"ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
           f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; the TPU kernel's per-run "
           f"model fused_cost charges {tpu_bytes / 1e9:.2f} GB); K2 device "
-          f"time on the path ~ {l2 * ms / 1e3:.2f} s of {wall:.2f} s")
+          f"time on the path ~ {l2 * ms / 1e3:.2f} s of {wall:.2f} s; per "
+          f"launch (profiled): "
+          + "; ".join(f"{name.split('(')[0]} {t:.4f} ms" for name, t in passes))
     del eng, dist, active, args, kw, st, q
 
     host_s = control_plane_seconds(
@@ -626,7 +735,13 @@ def hub_path(torch):
     dev_s, top = device_profile(torch, engine(n, e, source, **knobs), log)
     print(f"[4] device time (profiled re-run): {dev_s:.3f} s = "
           f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
-          + "; ".join(f"{name} {sec:.3f} s x{cnt}" for name, sec, cnt in top))
+          + top_ops(top))
+    k2_ops = [(name, sec, cnt) for name, sec, cnt in top if "k2_" in name]
+    assert k2_ops, "the profiled hub path shows no K2 kernel"
+    print(f"[4] K2 device time on the path (profiled): "
+          f"{sum(sec for _, sec, _ in k2_ops):.4f} s ("
+          + "; ".join(f"{name.split('(')[0]} {sec:.4f} s x{cnt}"
+                      for name, sec, cnt in k2_ops) + ")")
     us = sync_us(torch, n)
     print(f"[4] host sync bool(frontier.any()) at N={n}: {us:.1f} us")
     return {"name": "fused_sliced_relax", "route": "cuda",
@@ -647,11 +762,11 @@ def hub_cross_check(torch) -> None:
     n, e, source, log = stream(16, "rmat")
     runs = {}
     for name, knobs in (
-            ("auto+K2", dict(relax_backend="auto", sliced_fused=True)),
+            ("auto+K2", dict(relax_backend="auto")),
             ("sliced on K1", dict(relax_backend="sliced",
-                                  ell_use_kernel=True)),
+                                  ell_use_kernel=True, sliced_fused=False)),
             ("sliced plain", dict(relax_backend="sliced",
-                                  ell_use_kernel=False)),
+                                  ell_use_kernel=False, sliced_fused=False)),
             ("segment", dict(relax_backend="segment"))):
         eng = engine(n, e, source, **knobs)
         wall, res, launches = run_path(
@@ -713,7 +828,7 @@ def sparse_path(torch):
 
     runs = {}
     for mode, knobs in (("dense", {}), ("sparse", dict(
-            frontier_mode="sparse", frontier_kernel=True))):
+            frontier_mode="sparse"))):              # K3 by default
         eng = repro_torch.make_engine(num_vertices=n, edge_capacity=cap,
                                       source=0, **knobs)
         eng.ingest_log(base)                       # untimed base build
@@ -819,8 +934,10 @@ def gather_shape(torch, label, fns, leaf, rest, live, agg, counters):
     its plain version and ``F.embedding_bag`` over the live indices are
     timed with CUDA events, and the bound is counted on this run's data:
     the distinct live rows, the output, and for K4 the mask and the live
-    cells' indices (a masked cell's index is never read), for K5 every
-    index (a padding slot is found by reading it)."""
+    cells' indices (a masked cell's index is not needed), for K5 every
+    index (a padding slot is found by reading it).  Beside the
+    back-to-back CUDA-event time: device time and host time per call, of
+    the kernel and of ``F.embedding_bag``."""
     import torch.nn.functional as F
     entry, kernel, plain_fn = fns
     dt = "f32" if leaf.dtype == torch.float32 else "bf16"
@@ -846,10 +963,15 @@ def gather_shape(torch, label, fns, leaf, rest, live, agg, counters):
     flat = rest[0][live].long()              # live indices, in row order
     offsets = torch.zeros(rows, dtype=torch.long, device="cuda")
     offsets[1:] = live.sum(1).cumsum(0)[:-1]
-    ms = cuda_ms(torch, lambda: kernel(leaf, *rest, agg=agg), 20)
+    run_kernel = lambda: kernel(leaf, *rest, agg=agg)   # noqa: E731
+    run_library = lambda: F.embedding_bag(              # noqa: E731
+        flat, leaf, offsets, mode=agg)
+    ms = cuda_ms(torch, run_kernel, 20)
     plain_ms = cuda_ms(torch, lambda: plain_fn(leaf, *rest, agg=agg), 3)
-    library_ms = cuda_ms(torch, lambda: F.embedding_bag(
-        flat, leaf, offsets, mode=agg), 20)
+    library_ms = cuda_ms(torch, run_library, 20)
+    dev_ms, lib_dev_ms = device_ms(torch, run_kernel), device_ms(
+        torch, run_library)
+    h_us, lib_h_us = host_us(torch, run_kernel), host_us(torch, run_library)
     distinct = int(torch.unique(flat).numel())
     elt = leaf.element_size()
     index_bytes = (rest[1].numel() + 4 * flat.numel() if len(rest) == 2
@@ -859,14 +981,18 @@ def gather_shape(torch, label, fns, leaf, rest, live, agg, counters):
     bound_ms, bound_by = bound(nbytes, ops)
     print(f"[7] {label}: R={rows} K={live.shape[1]} width={width} "
           f"({flat.numel()} live cells, {distinct} distinct rows), {agg}: "
-          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, F.embedding_bag "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms = "
-          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); output bit-identical, "
-          f"gradient within {grad_err:.2e} of the largest entry; launches "
-          f"{launches}")
+          f"{ms:.4f} ms back to back (plain {plain_ms:.4f} ms, "
+          f"F.embedding_bag {library_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); device time per call "
+          f"{dev_ms:.4f} ms (F.embedding_bag {lib_dev_ms:.4f} ms); host time "
+          f"per call {h_us:.1f} us (F.embedding_bag {lib_h_us:.1f} us); "
+          f"output bit-identical, gradient within {grad_err:.2e} of the "
+          f"largest entry; launches {launches}")
     return launches, {"shape": label, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms, "max_abs_err": err,
+                      "library_ms": library_ms, "device_ms": dev_ms,
+                      "library_device_ms": lib_dev_ms, "host_us": h_us,
+                      "library_host_us": lib_h_us, "max_abs_err": err,
                       "grad_rel_err": grad_err,
                       "live_cells": flat.numel(), "distinct_rows": distinct}
 

@@ -52,6 +52,11 @@ ELL_BLOWUP_RATIO = 16
 
 FRONTIER_MODES = ("dense", "sparse", "auto")
 
+# Kernel switches whose default is None here (the kernel iff the device is
+# CUDA) but False in the reference: an explicit False is as unset as None,
+# so every configuration the reference accepts is accepted.
+_OFF_IS_UNSET = ("sliced_fused", "frontier_kernel")
+
 # Reference options that later slices of the port bring over: selecting one
 # raises instead of silently running something else.
 NOT_YET_PORTED = {"wave_schedule": ("buckets",)}
@@ -81,9 +86,14 @@ def validate_backend_config(cfg: Any) -> None:
         raise ValueError(f"frontier_cap must be >= 0 (0 = derive); got "
                          f"{cfg.frontier_cap}")
     defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+
+    def is_set(k: str) -> bool:
+        v = getattr(cfg, k)
+        return v != defaults[k] and not (k in _OFF_IS_UNSET and v is False)
+
     if mode == "dense":
         for k in ("frontier_cap", "frontier_kernel"):
-            if getattr(cfg, k) != defaults[k]:
+            if is_set(k):
                 raise ValueError(
                     f"{k}={getattr(cfg, k)!r} configures the sparse "
                     f"frontier path; remove it or select "
@@ -97,7 +107,7 @@ def validate_backend_config(cfg: Any) -> None:
         misapplied.append((_ELL_SHARED_KNOBS, "ELL-layout"))
     for knobs, layout in misapplied:
         for k in knobs:
-            if getattr(cfg, k) != defaults[k]:
+            if is_set(k):
                 raise ValueError(
                     f"{k}={getattr(cfg, k)!r} is a backend knob that does "
                     f"not apply to relax_backend={name!r} (it configures "
@@ -149,7 +159,8 @@ def make_backend(name: str, cfg: Any, *, use_kernel: bool = False,
                  device: torch.device | str = "cpu",
                  **options: Any) -> RelaxBackend:
     """Construct backend ``name``; ``options`` are that backend's own
-    constructor flags (``defer_blowup`` of ``ellpack``)."""
+    constructor flags (``defer_blowup`` of ``ellpack``, ``use_fused`` of
+    ``sliced``)."""
     if name not in BACKENDS:
         raise ValueError(f"unknown relax_backend {name!r}; valid backends: "
                          f"{sorted(BACKENDS)}")

@@ -38,7 +38,7 @@ from repro_torch.core.backends.base import (RelaxBackend, rank_within_rows,
 from repro_torch.core.relax import RelaxStats, converged_loop
 from repro_torch.core.state import INF, SSSPState
 from repro_torch.graphs import csr as csr_mod
-from repro_torch.kernels.relax.fused import fused_sliced_relax
+from repro_torch.kernels.relax.fused import block_table, fused_sliced_relax
 from repro_torch.kernels.relax.ref import (combine_lanes, ellpack_relax_ref,
                                            overflow_min, sliced_gather_min)
 from repro_torch.kernels.relax.relax import ellpack_relax
@@ -53,7 +53,11 @@ class SlicedEllState:
     Row r's cells occupy ``[base[r], base[r] + rowk[r])`` of the flat buffer
     (``flat_idx``, ``flat_w``); ``fill`` is each row's occupancy high-water
     mark.  Hub rows keep their surplus in-edges in the overflow segment
-    ``(osrc, odst, ow)``; empty/tombstoned entries carry w=+inf.
+    ``(osrc, odst, ow)``; empty/tombstoned entries carry w=+inf.  ``blocks``
+    is kernel K2's chunk table of the same geometry
+    (``fused.block_table``), made with ``base`` and ``rowk`` once per
+    layout where K2 runs (None elsewhere), so a wave does no host work or
+    copy for it.
     """
 
     flat_idx: torch.Tensor  # i32[L] in-neighbor ids (0 where empty/tombstone)
@@ -64,19 +68,25 @@ class SlicedEllState:
     osrc: torch.Tensor      # i32[C] overflow in-neighbor ids
     odst: torch.Tensor      # i32[C] overflow destination rows
     ow: torch.Tensor        # f32[C] overflow weights (+inf empty/tombstone)
+    blocks: torch.Tensor | None  # i32[4 * chunks] K2's chunk table
 
     @staticmethod
     def from_host(planner: "SlicedEllPlanner", arrays,
-                  device: torch.device | str) -> "SlicedEllState":
+                  device: torch.device | str, *,
+                  with_blocks: bool = True) -> "SlicedEllState":
         """``arrays`` = (flat_idx, flat_w, fill, osrc, odst, ow) as the
-        planner's ``empty_host`` / ``rebuild_host`` return them."""
+        planner's ``empty_host`` / ``rebuild_host`` return them;
+        ``with_blocks=False`` leaves out K2's chunk table, for a state K2
+        never reads."""
         fi, fw, fill, osrc, odst, ow = (torch.tensor(a, device=device)
                                         for a in arrays)
         return SlicedEllState(
             flat_idx=fi, flat_w=fw, fill=fill,
             base=torch.tensor(planner.base.astype(np.int32), device=device),
             rowk=torch.tensor(planner.rowk, device=device),
-            osrc=osrc, odst=odst, ow=ow)
+            osrc=osrc, odst=odst, ow=ow,
+            blocks=(torch.tensor(block_table(planner.widths, planner.sr),
+                                 device=device) if with_blocks else None))
 
 
 # --------------------------------------------------------------- patch ops --
@@ -176,7 +186,7 @@ def sliced_relax_wave(dist: torch.Tensor, parent: torch.Tensor,
                else frontier)
         comb, new_parent = fused_sliced_relax(
             dist, act, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow,
-            widths=widths, slice_rows=slice_rows, base=st.base, rowk=st.rowk)
+            widths=widths, slice_rows=slice_rows, blocks=st.blocks)
         comb, new_parent = comb[:n], new_parent[:n]
     else:
         offers = dist if frontier is None else torch.where(frontier, dist, INF)
@@ -379,18 +389,21 @@ class SlicedEllPlanner:
 class SlicedBackend(RelaxBackend):
     """RelaxBackend over the hybrid layout: SlicedEllPlanner host control
     plane, dual-lane in-place patch ops, hybrid epoch waves (K1 per run of
-    slices, or K2 for the whole wave with ``sliced_fused``), coupled
-    per-slice / overflow rebuilds from the mirror."""
+    slices, or K2 for the whole wave with ``use_fused``: the engine's
+    resolved ``sliced_fused``), coupled per-slice / overflow rebuilds from
+    the mirror."""
 
     name = "sliced"
 
-    def __init__(self, cfg, num_vertices, *, use_kernel=False, device="cpu"):
+    def __init__(self, cfg, num_vertices, *, use_kernel=False,
+                 use_fused=False, device="cpu"):
         super().__init__(cfg, num_vertices, use_kernel=use_kernel,
                          device=device)
-        self.use_fused = cfg.sliced_fused
+        self.use_fused = use_fused
         self.planner = self._mk_planner()
         self.state = SlicedEllState.from_host(
-            self.planner, self.planner.empty_host(), self.device)
+            self.planner, self.planner.empty_host(), self.device,
+            with_blocks=use_fused)
 
     def _mk_planner(self) -> SlicedEllPlanner:
         return SlicedEllPlanner(
@@ -403,7 +416,7 @@ class SlicedBackend(RelaxBackend):
     def _rebuild(self, alloc) -> None:
         self.state = SlicedEllState.from_host(
             self.planner, self.planner.rebuild_host(*alloc.active_coo()),
-            self.device)
+            self.device, with_blocks=self.use_fused)
 
     def apply_adds(self, plan, alloc):
         """Fresh edges get planner-assigned ELL cells or — for rows at the

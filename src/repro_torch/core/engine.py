@@ -14,13 +14,18 @@ the paper's flood), ``on_duplicate``, ``alloc_impl``, and
   * ``relax_backend`` — "segment", "ellpack" (dense ELL), "sliced" (hub-aware
     hybrid: per-slice-width ELL + overflow COO lane) or "auto" (dense ELL
     that swaps to sliced when a rebuild reports hub blowup);
-    ``ell_use_kernel=None`` runs K1 iff the device is CUDA;
-    ``sliced_fused=True`` runs every sliced wave in kernel K2;
+    ``ell_use_kernel`` runs the ELL waves in kernel K1 and
+    ``sliced_fused`` every sliced wave in kernel K2;
   * ``frontier_mode`` — "dense", "sparse" (every push epoch through the
     compacted worklist and the capacity ladder, core/frontier.py) or "auto"
     (ADD epochs sparse when the host-known frontier fits the top rung;
-    deletions stay dense); ``frontier_kernel=True`` runs those waves in
-    kernel K3.
+    deletions stay dense); ``frontier_kernel`` runs those waves in kernel
+    K3.
+The three kernel switches default to None: the kernel iff the device is
+CUDA, the plain torch version on the CPU (the reference's defaults there).
+An explicit True or False holds on either device; a kernel switch on a CPU
+engine still takes the plain version, since the wrappers launch only for
+CUDA tensors.
 ``device`` defaults to "cuda" and raises when CUDA is unavailable — there
 is no silent CPU fallback; tests pass ``device="cpu"``.  Options of the
 reference that later slices port (multi-source ``sources``, the bucketed
@@ -60,11 +65,11 @@ class EngineConfig:
     sliced_slice_rows: int = 256  # rows per degree slice (per-slice K)
     sliced_hub_k: int = 32        # hub threshold: rows past it spill to COO
     sliced_init_k: int = 2        # initial per-slice width; doubles at rebuild
-    sliced_fused: bool = False    # the whole wave in kernel K2
+    sliced_fused: bool | None = None  # None = kernel K2 iff device is CUDA
     wave_schedule: str = "rounds"
     frontier_mode: str = "dense"
     frontier_cap: int = 0           # top ladder rung; 0 = derive (~N/64)
-    frontier_kernel: bool = False   # sparse waves in kernel K3
+    frontier_kernel: bool | None = None  # None = K3 iff device is CUDA
     sources: tuple[int, ...] | None = None
     observability: bool = False
     alloc_impl: str = "columnar"
@@ -86,6 +91,12 @@ class EngineConfig:
                 "device='cpu' to run the plain torch path on the CPU")
 
 
+def resolve_kernel(flag: bool | None, device: torch.device) -> bool:
+    """A kernel switch as the engine runs it: None = the kernel iff
+    ``device`` is CUDA; True or False as given."""
+    return device.type == "cuda" if flag is None else flag
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy that later in-place device updates cannot alias."""
     return t.detach().to("cpu", copy=True).numpy()
@@ -102,17 +113,18 @@ class SSSPDelEngine(StreamEngineBase):
                                            cfg.on_duplicate, cfg.alloc_impl)
         self.state = GraphState.init(cfg.num_vertices, cfg.edge_capacity,
                                      cfg.source, self.device)
-        self._use_kernel = (self.device.type == "cuda"
-                            if cfg.ell_use_kernel is None
-                            else cfg.ell_use_kernel)
+        # the kernel switches, resolved once; cfg keeps what the caller set,
+        # so validate_backend_config still sees an unset knob as unset
+        self._use_kernel = resolve_kernel(cfg.ell_use_kernel, self.device)
+        self._use_fused = resolve_kernel(cfg.sliced_fused, self.device)
+        self._frontier_kernel = resolve_kernel(cfg.frontier_kernel,
+                                               self.device)
         # "auto" starts on the dense ELL layout and falls back to sliced when
         # a rebuild reports hub blowup (backends/base.py ELL_BLOWUP_RATIO)
         self._auto = cfg.relax_backend == bk_mod.AUTO_BACKEND
         self.backend_name = "ellpack" if self._auto else cfg.relax_backend
-        self.backend = bk_mod.make_backend(
-            self.backend_name, cfg, use_kernel=self._use_kernel,
-            device=self.device, **({"defer_blowup": True} if self._auto
-                                   else {}))
+        self.backend = self._make_backend(
+            **({"defer_blowup": True} if self._auto else {}))
         # frontier-compacted sparse path: OUT-adjacency sidecar + capacity
         # ladder, maintained whenever the mode can route sparse
         self._sparse = cfg.frontier_mode != "dense"
@@ -124,6 +136,15 @@ class SSSPDelEngine(StreamEngineBase):
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def _make_backend(self, **options) -> bk_mod.RelaxBackend:
+        """Backend ``self.backend_name`` with the resolved kernel switches
+        (``use_fused`` is the sliced layout's own)."""
+        if self.backend_name == "sliced":
+            options["use_fused"] = self._use_fused
+        return bk_mod.make_backend(self.backend_name, self.cfg,
+                                   use_kernel=self._use_kernel,
+                                   device=self.device, **options)
 
     def _route_sparse(self, occupancy_bound: int) -> bool:
         """Host-only routing: "sparse" always takes the compacted path (the
@@ -141,9 +162,7 @@ class SSSPDelEngine(StreamEngineBase):
         exactly as a restore would."""
         self._auto = False
         self.backend_name = "sliced"
-        self.backend = bk_mod.make_backend("sliced", self.cfg,
-                                           use_kernel=self._use_kernel,
-                                           device=self.device)
+        self.backend = self._make_backend()
         self.backend.restore(self.alloc)
 
     # ------------------------------------------------------------------ adds
@@ -166,7 +185,7 @@ class SSSPDelEngine(StreamEngineBase):
             self.state.sssp, stats = frontier_mod.sparse_relax_until_converged(
                 self.state.sssp, self.state.edges, self._out.state, frontier,
                 num_vertices=self.cfg.num_vertices, caps=self._caps,
-                use_kernel=self.cfg.frontier_kernel)
+                use_kernel=self._frontier_kernel)
         else:
             self.state.sssp, stats = self.backend.relax(
                 self.state.sssp, self.state.edges, frontier)
@@ -197,7 +216,7 @@ class SSSPDelEngine(StreamEngineBase):
                         self.state.sssp, self.state.edges, self._out.state,
                         seed, num_vertices=self.cfg.num_vertices,
                         caps=self._caps, use_doubling=self.cfg.use_doubling,
-                        use_kernel=self.cfg.frontier_kernel)
+                        use_kernel=self._frontier_kernel)
             else:
                 self.state.sssp, dstats = self.backend.delete(
                     self.state.sssp, self.state.edges, seed)

@@ -4,11 +4,14 @@
     eng = make_engine(num_vertices=n, edge_capacity=m, source=0,
                       relax_backend="ellpack", device="cpu")
     eng = make_engine(num_vertices=n, edge_capacity=m, source=0,
-                      relax_backend="auto", sliced_fused=True,   # K1/K2
-                      frontier_mode="sparse", frontier_kernel=True)  # K3
+                      relax_backend="auto",                # K1, then K2
+                      frontier_mode="sparse")              # K3
 
 Every keyword must be a field of ``EngineConfig``; anything else raises a
-ValueError listing the valid knobs.  The sharded engine (``partitions=`` /
+ValueError listing the valid knobs.  The kernel switches
+(``ell_use_kernel``, ``sliced_fused``, ``frontier_kernel``) default to
+the kernel on a CUDA device and the plain torch version on the CPU; pass
+False to run the plain version on the card.  The sharded engine (``partitions=`` /
 ``mesh=`` in the reference) is not yet ported.
 """
 from __future__ import annotations

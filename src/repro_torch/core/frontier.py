@@ -107,7 +107,8 @@ class OutAdjacency:
         self._knobs = dict(slice_rows=slice_rows, hub_k=hub_k, init_k=init_k)
         self.planner = SlicedEllPlanner(num_vertices, **self._knobs)
         self.state = SlicedEllState.from_host(
-            self.planner, self.planner.empty_host(), self.device)
+            self.planner, self.planner.empty_host(), self.device,
+            with_blocks=False)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -116,7 +117,7 @@ class OutAdjacency:
         src, dst, w = alloc.active_coo()
         self.state = SlicedEllState.from_host(
             self.planner, self.planner.rebuild_host(dst, src, w),  # swapped
-            self.device)
+            self.device, with_blocks=False)
 
     def apply_adds(self, plan, alloc) -> None:
         fresh = plan.fresh

@@ -88,6 +88,13 @@ def ell_from_coo(n: int, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     return idx, ww, fill
 
 
+def slice_offsets(widths: list[int] | tuple[int, ...],
+                  slice_rows: int) -> np.ndarray:
+    """i64[S+1]: slice s's cells start at ``offsets[s]`` of the flat
+    sliced-ELL buffer (``sliced_geometry``'s first output)."""
+    return slice_rows * np.r_[0, np.cumsum(np.asarray(widths, np.int64))]
+
+
 def sliced_geometry(widths: list[int], slice_rows: int):
     """Cell addressing of the flat sliced-ELL layout: returns
     ``(offsets i64[S+1], rowk i32[R], base i64[R], total_cells)`` where row
@@ -98,7 +105,7 @@ def sliced_geometry(widths: list[int], slice_rows: int):
     two must agree bit-for-bit or the device state silently corrupts.
     """
     wid = np.asarray(widths, np.int64)
-    offsets = slice_rows * np.r_[0, np.cumsum(wid)]
+    offsets = slice_offsets(widths, slice_rows)
     rowk = np.repeat(wid, slice_rows).astype(np.int32)
     R = len(widths) * slice_rows
     base = (np.repeat(offsets[:-1], slice_rows)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from collections.abc import Callable
 import hashlib
 import os
 import shutil
@@ -114,3 +115,30 @@ def load_all(sources: list[Path]) -> list[Built]:
 def load(source: Path) -> Built:
     """``load_all`` for one source."""
     return load_all([source])[0]
+
+
+def launcher(source: Path, symbol: str, argtypes: list) -> Callable[..., int]:
+    """The C launcher ``symbol`` of ``source``'s library (built at first
+    use) with its ctypes signature bound: ``argtypes``, then the stream.
+    Callers cache it, so a launch pays no lookup."""
+    fn = getattr(load(source).lib, symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(kernel: str, fn: Callable[..., int], dev: torch.device,
+           *args) -> None:
+    """Enqueue ``fn(*args, stream)`` on ``dev``'s current stream and raise
+    if it returns a CUDA error.  The stream goes as its raw handle (as
+    torch's own compiled kernels take it, without building a Stream
+    object), and the current device is switched only when ``dev`` (a
+    tensor's device, so its index is set) is not already current."""
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error "
+                           f"{err}")

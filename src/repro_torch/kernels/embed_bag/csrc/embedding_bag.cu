@@ -8,11 +8,14 @@
 //
 // agg sum / mean over a table in f32 or bf16.  The body, its numerics and
 // its design are ../../csrc/gather_reduce.cuh's, with a slot live where its
-// index is >= 0: a -1 padding slot's row is never read, a live index past
-// the table is clamped to its last row as the plain version (ref.py) clamps
-// it, and the result is bit-identical to that plain version.  At DIN's D =
-// 18 a group has 8 lanes.  The TPU kernel's per-slot row DMA, its B % bb
-// constraint and the lane padding of D are not carried over.
+// index is >= 0: a -1 padding slot is never added (its load reads row 0, a
+// cached line), a live index past the table is clamped to its last row as
+// the plain version (ref.py) clamps it, and the result is bit-identical to
+// that plain version.  At DIN's D = 18 a bag is one warp, one feature a
+// lane, with 32 rows in flight, so a 100-slot bag takes 4 steps of one load
+// latency each.  The TPU
+// kernel's per-slot row DMA, its B % bb constraint and the lane padding of
+// D are not carried over.
 //
 // Bound: device-memory bandwidth.  The function reads each distinct live
 // row once (U rows of D elements) and every index (4BL bytes: a padding

@@ -26,21 +26,20 @@ DTYPES = (torch.float32, torch.bfloat16)   # the C interface's dtype codes
 
 
 @functools.cache
-def load() -> build.Built:
-    """Build (at first use) and bind the kernel library, once per process."""
-    built = build.load(SOURCE)
-    fn = built.lib.embedding_bag_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+def launcher():
+    """The kernel's C launcher, built at first use and bound once per
+    process."""
+    return build.launcher(SOURCE, "embedding_bag_launch",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 5)
 
 
-def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
-    if table.device.type != "cuda" or idx.device != table.device:
+def _check(table: torch.Tensor, idx: torch.Tensor,
+           dev: torch.device) -> None:
+    if dev.type != "cuda" or idx.device != dev:
         raise ValueError(
             f"embedding_bag: tensors must share one CUDA device; got "
-            f"{table.device}, {idx.device}")
+            f"{dev}, {idx.device}")
     if table.dtype not in DTYPES or idx.dtype != torch.int32:
         raise ValueError(
             f"embedding_bag: expected (f32 or bf16, i32); got "
@@ -61,22 +60,17 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
     clamped to at most V - 1 -> (B, D) in the table's dtype."""
     if agg not in AGGS:
         raise ValueError(f"unknown agg {agg!r}")
-    if table.device.type == "cpu" and idx.device.type == "cpu":
+    dev = table.device        # read once: each read builds a device object
+    if dev.type == "cpu" and idx.device.type == "cpu":
         return embedding_bag_ref(table, idx, agg=agg)
-    _check(table, idx)
+    _check(table, idx, dev)
     (bags, slots), (v, d) = idx.shape, table.shape
-    out = torch.empty((bags, d), dtype=table.dtype, device=table.device)
+    out = table.new_empty((bags, d))
     if bags == 0 or d == 0:
         return out
-    lib = load().lib
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.embedding_bag_launch(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), bags, slots, d,
-            v, AGGS.index(agg), DTYPES.index(table.dtype), stream)
-    if err:
-        raise RuntimeError(f"embedding_bag: kernel launch failed with CUDA "
-                           f"error {err}")
+    build.launch("embedding_bag", launcher(), dev, table.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), bags, slots, d, v,
+                 AGGS.index(agg), DTYPES.index(table.dtype))
     embedding_bag.launches += 1
     return out
 

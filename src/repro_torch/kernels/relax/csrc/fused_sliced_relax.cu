@@ -6,7 +6,7 @@
 // _mk_kernel).  For every row r of the flat sliced-ELL layout:
 //
 //   offers[v] = active[v] ? dist[v] : +inf
-//   ELL lane  : cells [base[r], base[r] + rowk[r]) of (flat_idx, flat_w)
+//   ELL lane  : row r's cells of (flat_idx, flat_w)
 //   COO lane  : overflow entries i with odst[i] == r
 //   best[r]   = min over both lanes of offers[src] + w
 //   arg[r]    = smallest src attaining best[r]; INT_MAX where best is +inf
@@ -15,31 +15,52 @@
 // backend, bit for bit.
 //
 // Bound: device-memory bandwidth.  Each input read once and each output
-// written once is 5N (dist f32 + active bool) + 8L (flat idx/w) + 12C
-// (overflow src/dst/w) + 8R (best/arg) bytes; at the RMAT(20) main path's
-// final shapes (N = R = 2^20, L ~ 26.4M, C = 2^23) that is ~326 MB, ~97 us
-// at 3.35 TB/s.  The arithmetic (one add and one compare per candidate) is
+// written once is 5N (dist f32 + active bool) + 4L (every ELL weight) +
+// 4 live_L (the index of each finite-weight cell) + 4C + 8 live_C (every
+// overflow weight; source and row of the finite ones) + 8R (best/arg):
+// fused.wave_bytes.  At the RMAT(20) main path's final layout (N = R =
+// 2^20, L ~ 26.4M cells of which ~11 % live, C = 2^23) ~193 MB, ~58 us at
+// 3.35 TB/s.  The arithmetic (one add and one compare per candidate) is
 // negligible.
 //
-// Design, two launches on one stream:
+// Design, the key reset and two launches on one stream:
 //  (a) the COO lane: one thread per overflow entry.  A live entry (finite
 //      w) whose source is active scatters its (value, src) key into the
-//      row's u64 key with one atomicMin (minkey.cuh).  The TPU kernel
-//      rescans the whole COO segment once per distinct-width run (2,356
-//      runs at the RMAT(20) window); here it is read once per wave.
-//  (b) the ELL lane over all R rows at once: a power-of-two group of
-//      LANES = min(32, next_pow2(max width)) threads per row (K1's mapping)
-//      strides over the row's rowk[r] cells, keeps a running (value, id)
-//      pair under the lexicographic rule, reduces it by shuffles, and lane 0
-//      folds in the row's COO key and writes best/arg.  The active mask is
-//      applied in the gather, so the masked offers vector never exists.
-// The lexicographic min over the union of the two lanes is exactly
-// combine_lanes, because each lane already yields its smallest minimising
-// id.  Adds are __fadd_rn (never contracted), as in the plain version.
+//      row's u64 key with atomicMin (minkey.cuh); a warp whose keys all
+//      target one row (most of a hub's contiguous surplus) first takes
+//      their min and makes one atomic.  The TPU kernel rescans the whole
+//      COO segment once per distinct-width run (1,418 runs at the RMAT(20)
+//      layout); here it is read once per wave.
+//  (b) the ELL lane, streamed by the layout's own geometry.  The flat
+//      buffer is a series of row-major (rows, k) blocks, one per run of
+//      equal-width slices, k a power of two.  A device table made once per
+//      layout (fused.py::block_table) cuts each run into chunks of
+//      kChunk = 1,024 cells (whole rows) and gives each thread block one
+//      chunk: (first cell, first row, log2 k, cells); a chunk that would
+//      reach past the flat buffer or the rows is skipped whole, so a table
+//      made for another layout cannot read or write out of bounds (the
+//      wrapper refuses a table of the wrong size).  For k <= 32, thread
+//      t takes cells t, t + 256, t + 512, t + 768 of its chunk: each warp
+//      step holds 32 / k whole rows, every load is coalesced, a row of a
+//      width-1 slice costs one lane, and a segmented shuffle of width k
+//      reduces each row.  Wider slices (hub_k > 32)
+//      take one warp per row.  All four steps' weights are loaded first;
+//      the index, active flag and dist of a cell are read only where its
+//      weight is finite (89 % of the RMAT(20) cells are +inf padding,
+//      whose candidate is +inf whatever the index says), active and dist
+//      in parallel.  Each row's leader loads the row's COO key with the
+//      weights, folds it in and writes best/arg.
+// The lexicographic (value, smallest id) minimum is a total order, so any
+// reduction order gives the plain version's result; each lane already
+// yields its smallest minimising id, so the union of the two lanes is
+// exactly combine_lanes.  Adds are __fadd_rn (never contracted), as in the
+// plain version.
 //
 // C interface: fused_sliced_relax_launch(...) enqueues the key reset and
-// both launches on `stream` and returns the first CUDA error (0 = launched).
-// `key` is caller-allocated scratch of R u64 words.
+// both launches on `stream` and returns the first CUDA error (0 =
+// launched).  `key` is caller-allocated scratch of R u64 words; `blocks`
+// the int4 chunk table of `n_blocks` entries made for `chunk` cells over a
+// flat buffer of `cells` cells and `rows` rows.
 
 #include <cuda_runtime.h>
 
@@ -50,116 +71,181 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChunk = 1024;                 // cells per chunk (k <= 32)
+constexpr int kSteps = kChunk / kThreads;    // cells per thread
+
+// The candidate of a cell or entry with weight w and source nb: its
+// active flag and dist are loaded in parallel.
+__device__ __forceinline__ float candidate(const float* __restrict__ dist,
+                                           const unsigned char* __restrict__
+                                               active,
+                                           int nb, float w) {
+  const unsigned char a = __ldg(active + nb);
+  const float d = __ldg(dist + nb);
+  return a ? __fadd_rn(d, w) : minkey::inf();
+}
 
 __global__ void __launch_bounds__(kThreads)
-overflow_lane_kernel(const float* __restrict__ dist,
-                     const unsigned char* __restrict__ active,
-                     const int* __restrict__ osrc,
-                     const int* __restrict__ odst,
-                     const float* __restrict__ ow,
-                     unsigned long long* __restrict__ key, long long c) {
+k2_coo_pass(const float* __restrict__ dist,
+            const unsigned char* __restrict__ active,
+            const int* __restrict__ osrc, const int* __restrict__ odst,
+            const float* __restrict__ ow, unsigned long long* __restrict__ key,
+            long long c) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (i >= c) return;
-  const float w = __ldg(ow + i);
-  if (!(w < minkey::inf())) return;  // empty or tombstoned entry
-  const int s = __ldg(osrc + i);
-  if (!__ldg(active + s)) return;
-  const float v = __fadd_rn(__ldg(dist + s), w);
-  if (v < minkey::inf()) minkey::scatter_min(key, __ldg(odst + i), v, s);
-}
-
-template <int LANES>
-__global__ void __launch_bounds__(kThreads)
-ell_lane_kernel(const float* __restrict__ dist,
-                const unsigned char* __restrict__ active,
-                const int* __restrict__ flat_idx,
-                const float* __restrict__ flat_w,
-                const int* __restrict__ base, const int* __restrict__ rowk,
-                const unsigned long long* __restrict__ key,
-                float* __restrict__ best, int* __restrict__ arg,
-                long long rows) {
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / LANES;
-  const int lane = threadIdx.x % LANES;
-  float v = minkey::inf();
-  int id = INT_MAX;
-  if (row < rows) {
-    const long long b = __ldg(base + row);
-    const int k = __ldg(rowk + row);
-    for (int j = lane; j < k; j += LANES) {
-      const int nb = __ldg(flat_idx + b + j);
-      const float off = __ldg(active + nb) ? __ldg(dist + nb) : minkey::inf();
-      minkey::take_min(v, id, __fadd_rn(off, __ldg(flat_w + b + j)), nb);
+  unsigned long long kv = minkey::kEmpty;  // this entry's key, if it has one
+  int row = -1;
+  if (i < c) {
+    const float w = __ldg(ow + i);
+    if (w < minkey::inf()) {  // not an empty or tombstoned entry
+      const int s = __ldg(osrc + i);
+      const int r = __ldg(odst + i);
+      const float v = candidate(dist, active, s, w);
+      if (v < minkey::inf()) {
+        kv = minkey::pack(v, s);
+        row = r;
+      }
     }
   }
-  // every thread of the warp reaches the shuffles (rows past the end carry
-  // +inf), so the full mask is exact
+  // A hub's surplus is stored contiguously, so a warp's keys mostly share
+  // one row: then the warp takes their min and lane 0 makes the one
+  // atomicMin (a row of 17,891 entries at RMAT(20) otherwise serialises as
+  // many atomics on one word); else every key makes its own.
+  const unsigned live = __ballot_sync(0xffffffffu, kv != minkey::kEmpty);
+  if (live == 0) return;
+  const int row0 = __shfl_sync(0xffffffffu, row, __ffs(live) - 1);
+  if (__all_sync(0xffffffffu, kv == minkey::kEmpty || row == row0)) {
 #pragma unroll
-  for (int off = LANES / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off, LANES);
-    const int oid = __shfl_xor_sync(0xffffffffu, id, off, LANES);
-    minkey::take_min(v, id, ov, oid);
-  }
-  if (row < rows && lane == 0) {
-    const unsigned long long kv = key[row];
-    if (kv != minkey::kEmpty)
-      minkey::take_min(v, id, minkey::value(kv), minkey::id(kv));
-    best[row] = v;
-    arg[row] = v < minkey::inf() ? id : INT_MAX;
+    for (int off = 16; off > 0; off >>= 1)
+      kv = min(kv, __shfl_xor_sync(0xffffffffu, kv, off));
+    if ((threadIdx.x & 31) == 0) atomicMin(key + row0, kv);
+  } else if (kv != minkey::kEmpty) {
+    atomicMin(key + row, kv);
   }
 }
 
-template <int LANES>
-cudaError_t launch_ell(const float* dist, const unsigned char* active,
-                       const int* flat_idx, const float* flat_w,
-                       const int* base, const int* rowk,
-                       const unsigned long long* key, float* best, int* arg,
-                       long long rows, cudaStream_t stream) {
-  constexpr long long rows_per_block = kThreads / LANES;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  ell_lane_kernel<LANES><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           stream>>>(dist, active, flat_idx, flat_w, base,
-                                     rowk, key, best, arg, rows);
-  return cudaGetLastError();
+// Fold a row's COO key kv into its ELL (v, id) and store best/arg.
+__device__ __forceinline__ void finish_row(unsigned long long kv,
+                                           float* __restrict__ best,
+                                           int* __restrict__ arg, int row,
+                                           float v, int id) {
+  if (kv != minkey::kEmpty)
+    minkey::take_min(v, id, minkey::value(kv), minkey::id(kv));
+  best[row] = v;
+  arg[row] = v < minkey::inf() ? id : INT_MAX;
+}
+
+__global__ void __launch_bounds__(kThreads)
+k2_ell_pass(const float* __restrict__ dist,
+            const unsigned char* __restrict__ active,
+            const int* __restrict__ flat_idx,
+            const float* __restrict__ flat_w, const int4* __restrict__ blocks,
+            const unsigned long long* __restrict__ key,
+            float* __restrict__ best, int* __restrict__ arg,
+            unsigned long long n_cells, unsigned long long n_rows) {
+  const int4 blk = __ldg(blocks + blockIdx.x);
+  const int cell0 = blk.x, row0 = blk.y, log2k = blk.z, cells = blk.w;
+  // A chunk past the flat buffer or the rows leaves whole (so the shuffles
+  // below stay exact): unsigned, a negative field is past every end.  A
+  // chunk larger than kChunk is only cut short, never read past.
+  if (static_cast<unsigned>(log2k) > 30u ||
+      static_cast<unsigned long long>(static_cast<unsigned>(cell0)) +
+              static_cast<unsigned>(cells) > n_cells ||
+      static_cast<unsigned long long>(static_cast<unsigned>(row0)) +
+              ((static_cast<unsigned>(cells) + (1u << log2k) - 1) >> log2k) >
+          n_rows)
+    return;
+  const int t = threadIdx.x;
+  if (log2k <= 5) {
+    // k <= 32: cell t + s * kThreads of the chunk, whole rows per warp step
+    const int k = 1 << log2k;
+    float w[kSteps];
+    int nb[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int c = t + s * kThreads;
+      w[s] = c < cells ? __ldg(flat_w + cell0 + c) : minkey::inf();
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+      nb[s] = w[s] < minkey::inf() ? __ldg(flat_idx + cell0 + t + s * kThreads)
+                                   : INT_MAX;
+    unsigned long long kv[kSteps];  // the row's COO key, at its leader
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int c = t + s * kThreads;
+      kv[s] = c < cells && (c & (k - 1)) == 0 ? key[row0 + (c >> log2k)]
+                                              : minkey::kEmpty;
+    }
+    float v[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+      v[s] = w[s] < minkey::inf() ? candidate(dist, active, nb[s], w[s])
+                                  : minkey::inf();
+    // every thread of the block runs every step (cells past the chunk
+    // carry +inf), so the full mask is exact for the shuffles
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      float sv = v[s];
+      int sid = nb[s];
+      for (int off = k >> 1; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, sv, off, k);
+        const int oid = __shfl_xor_sync(0xffffffffu, sid, off, k);
+        minkey::take_min(sv, sid, ov, oid);
+      }
+      const int c = t + s * kThreads;
+      if (c < cells && (c & (k - 1)) == 0)
+        finish_row(kv[s], best, arg, row0 + (c >> log2k), sv, sid);
+    }
+  } else {
+    // k > 32 (hub_k above a warp): one warp per row, lanes stride the row
+    const int k = 1 << log2k;
+    const int lane = t & 31;
+    const int rows = cells >> log2k;
+    for (int r = t >> 5; r < rows; r += kThreads / 32) {
+      const int b = cell0 + r * k;
+      float sv = minkey::inf();
+      int sid = INT_MAX;
+      for (int j = lane; j < k; j += 32) {
+        const float wj = __ldg(flat_w + b + j);
+        if (wj < minkey::inf()) {
+          const int nj = __ldg(flat_idx + b + j);
+          minkey::take_min(sv, sid, candidate(dist, active, nj, wj), nj);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, sv, off);
+        const int oid = __shfl_xor_sync(0xffffffffu, sid, off);
+        minkey::take_min(sv, sid, ov, oid);
+      }
+      if (lane == 0) finish_row(key[row0 + r], best, arg, row0 + r, sv, sid);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int fused_sliced_relax_launch(
     const float* dist, const unsigned char* active, const int* flat_idx,
-    const float* flat_w, const int* base, const int* rowk, const int* osrc,
-    const int* odst, const float* ow, unsigned long long* key, float* best,
-    int* arg, long long rows, long long c, int max_width, void* stream) {
-  if (rows <= 0 || c < 0 || max_width <= 0)
+    const float* flat_w, const int* blocks, const int* osrc, const int* odst,
+    const float* ow, unsigned long long* key, float* best, int* arg,
+    long long rows, long long cells, long long c, int n_blocks, int chunk,
+    void* stream) {
+  if (rows <= 0 || cells <= 0 || c < 0 || n_blocks <= 0 || chunk != kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(key, 0xff, rows * sizeof(*key), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (c > 0) {
-    const long long blocks = (c + kThreads - 1) / kThreads;
-    overflow_lane_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+    const long long nb = (c + kThreads - 1) / kThreads;
+    k2_coo_pass<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
         dist, active, osrc, odst, ow, key, c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (max_width <= 1)
-    err = launch_ell<1>(dist, active, flat_idx, flat_w, base, rowk, key, best,
-                        arg, rows, s);
-  else if (max_width <= 2)
-    err = launch_ell<2>(dist, active, flat_idx, flat_w, base, rowk, key, best,
-                        arg, rows, s);
-  else if (max_width <= 4)
-    err = launch_ell<4>(dist, active, flat_idx, flat_w, base, rowk, key, best,
-                        arg, rows, s);
-  else if (max_width <= 8)
-    err = launch_ell<8>(dist, active, flat_idx, flat_w, base, rowk, key, best,
-                        arg, rows, s);
-  else if (max_width <= 16)
-    err = launch_ell<16>(dist, active, flat_idx, flat_w, base, rowk, key,
-                         best, arg, rows, s);
-  else
-    err = launch_ell<32>(dist, active, flat_idx, flat_w, base, rowk, key,
-                         best, arg, rows, s);
-  return static_cast<int>(err);
+  k2_ell_pass<<<static_cast<unsigned>(n_blocks), kThreads, 0, s>>>(
+      dist, active, flat_idx, flat_w, reinterpret_cast<const int4*>(blocks),
+      key, best, arg, cells, rows);
+  return static_cast<int>(cudaGetLastError());
 }

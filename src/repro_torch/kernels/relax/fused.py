@@ -4,7 +4,7 @@ Pallas TPU kernel ``repro.kernels.relax.fused.fused_sliced_relax``; plus the
 run-group helper and the TPU kernel's cost model, copied from that module.
 
 ``fused_sliced_relax(dist, active, flat_idx, flat_w, osrc, odst, ow, *,
-widths, slice_rows, base, rowk) -> (best f32[R], arg i32[R])`` computes
+widths, slice_rows, blocks) -> (best f32[R], arg i32[R])`` computes
 exactly ``fused_sliced_relax_ref`` (ref.py): the frontier-masked ELL lane
 over the flat buffer, the overflow COO lane and the lane combine in one
 call, ``arg = INT_MAX`` where nothing is finite.  Tensors on the CPU take
@@ -15,7 +15,9 @@ launches (a plain integer; callers reset it to 0 to count one run).
 The TPU kernel makes one ``pallas_call`` per distinct-width run and rescans
 the whole overflow segment in each; the CUDA kernel reads the segment once
 per wave (one 64-bit ``atomicMin`` per live entry) and then covers all rows
-in one launch, reading each row's ``base``/``rowk`` from the layout state.
+in one launch, one thread block per chunk of ``block_table`` — the
+layout's geometry, made on the host once per layout and kept on the device
+beside it (``SlicedEllState.blocks``).
 """
 from __future__ import annotations
 
@@ -23,13 +25,51 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from repro_torch.graphs.csr import width_runs
+from repro_torch.graphs.csr import slice_offsets, width_runs
 from repro_torch.kernels import build
 from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_sliced_relax.cu"
+BLOCK_CELLS = 1024   # cells per chunk; the kernel's kChunk
+
+
+def block_table(widths: tuple[int, ...] | list[int],
+                slice_rows: int) -> np.ndarray:
+    """The ELL pass's chunk table for the flat sliced layout of
+    ``widths``: each run of equal-width slices (one row-major ``(rows,
+    k)`` block at its ``slice_offsets`` offset) cut into chunks of
+    ``max(BLOCK_CELLS, k)`` cells, whole rows each.  Returns i32[4 *
+    chunks], one ``(first cell, first row, log2 k, cells)`` quadruple per
+    chunk (one thread block each), in row order."""
+    wid = np.asarray(widths, np.int64)
+    if not len(wid):
+        return np.zeros(0, np.int32)
+    starts = np.flatnonzero(np.r_[True, wid[1:] != wid[:-1]])
+    k = wid[starts]
+    cells = np.diff(np.r_[starts, len(wid)]) * slice_rows * k
+    cell0 = slice_offsets(widths, slice_rows)[starts]
+    chunk = np.maximum(BLOCK_CELLS, k)
+    per_run = -(-cells // chunk)
+    run = np.repeat(np.arange(len(starts)), per_run)
+    j = np.arange(len(run)) - np.repeat(np.cumsum(per_run) - per_run,
+                                        per_run)
+    off = j * chunk[run]
+    table = np.stack([cell0[run] + off,
+                      starts[run] * slice_rows + off // k[run],
+                      np.log2(k[run]).astype(np.int64),
+                      np.minimum(chunk[run], cells[run] - off)], axis=1)
+    return table.astype(np.int32).ravel()
+
+
+@functools.lru_cache(maxsize=16)
+def _layout_size(widths: tuple[int, ...], slice_rows: int) -> tuple[int, int]:
+    """(i32 words of ``block_table(widths, slice_rows)``, cells of the
+    layout), once per layout."""
+    return (block_table(widths, slice_rows).shape[0],
+            int(slice_offsets(widths, slice_rows)[-1]))
 
 
 def slice_run_groups(widths: tuple[int, ...] | list[int],
@@ -82,31 +122,37 @@ def wave_bytes(num_vertices: int, cells: int, live_cells: int,
 
 
 @functools.cache
-def load() -> build.Built:
-    """Build (at first use) and bind the kernel library, once per process."""
-    built = build.load(SOURCE)
-    fn = built.lib.fused_sliced_relax_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong,
-                                            ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+def launcher():
+    """The kernel's C launcher, built at first use and bound once per
+    process."""
+    return build.launcher(SOURCE, "fused_sliced_relax_launch",
+                          [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3
+                          + [ctypes.c_int] * 2)
 
 
 def fused_sliced_relax(dist: torch.Tensor, active: torch.Tensor,
                        flat_idx: torch.Tensor, flat_w: torch.Tensor,
                        osrc: torch.Tensor, odst: torch.Tensor,
                        ow: torch.Tensor, *, widths: tuple[int, ...],
-                       slice_rows: int, base: torch.Tensor,
-                       rowk: torch.Tensor
+                       slice_rows: int, blocks: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One hybrid wave over ``R = len(widths) * slice_rows`` rows: row r's
-    ELL cells are ``[base[r], base[r] + rowk[r])`` of the flat buffer (the
-    planner's geometry for ``widths``), its overflow entries those with
-    ``odst == r``; cell and overflow sources index ``dist``, ``odst`` lies
-    in [0, R).  ``active`` masks offer sources (all True for an unmasked
-    pull wave)."""
-    tensors = (dist, active, flat_idx, flat_w, osrc, odst, ow, base, rowk)
+    """One hybrid wave over ``R = len(widths) * slice_rows`` rows: the
+    flat buffer is laid out by ``sliced_geometry(widths, slice_rows)``,
+    ``blocks`` is ``block_table(widths, slice_rows)`` on the tensors'
+    device, and a row's overflow entries are those with ``odst == r``;
+    cell and overflow sources index ``dist``, ``odst`` lies in [0, R).
+    ``active`` masks offer sources (all True for an unmasked pull wave).
+    Raises ``ValueError`` where ``flat_w`` or ``blocks`` is not the size
+    the layout gives, on any device; the kernel also skips a chunk that
+    would reach past the flat buffer or the rows."""
+    tensors = (dist, active, flat_idx, flat_w, osrc, odst, ow, blocks)
+    words, cells = _layout_size(tuple(widths), slice_rows)
+    if flat_w.shape[0] != cells or blocks.shape[0] != words:
+        raise ValueError(
+            f"fused_sliced_relax: the layout of {len(widths)} slices of "
+            f"{slice_rows} rows has {cells} cells and a {words}-word block "
+            f"table; got flat_w of {flat_w.shape[0]} and blocks of "
+            f"{blocks.shape[0]}")
     if all(t.device.type == "cpu" for t in tensors):
         return fused_sliced_relax_ref(dist, active, flat_idx, flat_w, osrc,
                                       odst, ow, widths=widths,
@@ -115,30 +161,25 @@ def fused_sliced_relax(dist: torch.Tensor, active: torch.Tensor,
     dev = build.check_args(
         "fused_sliced_relax", dist=(dist, f32), active=(active, torch.bool),
         flat_idx=(flat_idx, i32), flat_w=(flat_w, f32), osrc=(osrc, i32),
-        odst=(odst, i32), ow=(ow, f32), base=(base, i32), rowk=(rowk, i32))
+        odst=(odst, i32), ow=(ow, f32), blocks=(blocks, i32))
     rows = len(widths) * slice_rows
-    if (base.shape[0] != rows or rowk.shape[0] != rows
-            or flat_idx.shape != flat_w.shape or dist.shape != active.shape
-            or not osrc.shape == odst.shape == ow.shape):
+    if (flat_idx.shape != flat_w.shape or dist.shape != active.shape
+            or not osrc.shape == odst.shape == ow.shape
+            or blocks.data_ptr() % 16):
         raise ValueError(
-            f"fused_sliced_relax: expected base/rowk ({rows},), flat_idx = "
-            f"flat_w, dist = active and osrc = odst = ow shapes; got "
-            f"{[tuple(t.shape) for t in tensors]}")
+            f"fused_sliced_relax: expected flat_idx = flat_w, dist = active "
+            f"and osrc = odst = ow shapes and a 16-byte aligned blocks "
+            f"table; got {[tuple(t.shape) for t in tensors]}")
     best = torch.empty(rows, dtype=f32, device=dev)
     arg = torch.empty(rows, dtype=i32, device=dev)
     if rows == 0:
         return best, arg
     key = torch.empty(rows, dtype=torch.int64, device=dev)
-    lib = load().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_sliced_relax_launch(
-            *(t.data_ptr() for t in (dist, active, flat_idx, flat_w, base,
-                                     rowk, osrc, odst, ow, key, best, arg)),
-            rows, ow.shape[0], max(widths), stream)
-    if err:
-        raise RuntimeError(f"fused_sliced_relax: kernel launch failed with "
-                           f"CUDA error {err}")
+    build.launch("fused_sliced_relax", launcher(), dev,
+                 *(t.data_ptr() for t in (dist, active, flat_idx, flat_w,
+                                          blocks, osrc, odst, ow, key, best,
+                                          arg)),
+                 rows, cells, ow.shape[0], words // 4, BLOCK_CELLS)
     fused_sliced_relax.launches += 1
     return best, arg
 

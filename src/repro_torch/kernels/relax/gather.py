@@ -25,18 +25,15 @@ from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "gathered_rows_relax.cu"
 
-__all__ = ["gathered_rows_relax", "gathered_rows_relax_ref", "load"]
+__all__ = ["gathered_rows_relax", "gathered_rows_relax_ref", "launcher"]
 
 
 @functools.cache
-def load() -> build.Built:
-    """Build (at first use) and bind the kernel library, once per process."""
-    built = build.load(SOURCE)
-    fn = built.lib.gathered_rows_relax_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong,
-                                           ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+def launcher():
+    """The kernel's C launcher, built at first use and bound once per
+    process."""
+    return build.launcher(SOURCE, "gathered_rows_relax_launch",
+                          [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2)
 
 
 def gathered_rows_relax(src_dist: torch.Tensor, src_ids: torch.Tensor,
@@ -64,16 +61,10 @@ def gathered_rows_relax(src_dist: torch.Tensor, src_ids: torch.Tensor,
     if num_rows == 0:
         return best, arg
     key = torch.empty(num_rows, dtype=torch.int64, device=dev)
-    lib = load().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gathered_rows_relax_launch(
-            *(t.data_ptr() for t in (src_dist, src_ids, nbr, w, mask, key,
-                                     best, arg)),
-            mask.shape[0], num_rows, stream)
-    if err:
-        raise RuntimeError(f"gathered_rows_relax: kernel launch failed with "
-                           f"CUDA error {err}")
+    build.launch("gathered_rows_relax", launcher(), dev,
+                 *(t.data_ptr() for t in (src_dist, src_ids, nbr, w, mask,
+                                          key, best, arg)),
+                 mask.shape[0], num_rows)
     gathered_rows_relax.launches += 1
     return best, arg
 

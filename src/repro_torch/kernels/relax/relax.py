@@ -23,14 +23,12 @@ SOURCE = Path(__file__).parent / "csrc" / "ellpack_relax.cu"
 
 
 @functools.cache
-def load() -> build.Built:
-    """Build (at first use) and bind the kernel library, once per process."""
-    built = build.load(SOURCE)
-    fn = built.lib.ellpack_relax_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+def launcher():
+    """The kernel's C launcher, built at first use and bound once per
+    process."""
+    return build.launcher(SOURCE, "ellpack_relax_launch",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                                   ctypes.c_int])
 
 
 def _check(offers: torch.Tensor, nbr_idx: torch.Tensor,
@@ -72,15 +70,9 @@ def ellpack_relax(offers: torch.Tensor, nbr_idx: torch.Tensor,
     arg = torch.empty(rows, dtype=torch.int32, device=offers.device)
     if rows == 0:
         return best, arg
-    lib = load().lib
-    with torch.cuda.device(offers.device):
-        stream = torch.cuda.current_stream(offers.device).cuda_stream
-        err = lib.ellpack_relax_launch(
-            offers.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
-            best.data_ptr(), arg.data_ptr(), rows, k, stream)
-    if err:
-        raise RuntimeError(f"ellpack_relax: kernel launch failed with CUDA "
-                           f"error {err}")
+    build.launch("ellpack_relax", launcher(), offers.device,
+                 offers.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
+                 best.data_ptr(), arg.data_ptr(), rows, k)
     ellpack_relax.launches += 1
     return best, arg
 

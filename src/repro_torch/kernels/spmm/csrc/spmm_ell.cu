@@ -7,7 +7,7 @@
 //
 // agg sum / mean / max over feats in f32 or bf16.  The body, its numerics
 // and its design are ../../csrc/gather_reduce.cuh's, with the mask read
-// from `mask`: a masked cell's index is never read (the sampler writes -1
+// from `mask`: a masked cell's index is never used (the sampler writes -1
 // there), a live one is clamped into [0, S) as the plain version (ref.py)
 // clamps it, and the result is bit-identical to that plain version.  The
 // TPU kernel's (S, bf) VMEM feature panel and its R % bm and F % bf

@@ -25,14 +25,12 @@ DTYPES = (torch.float32, torch.bfloat16)   # the C interface's dtype codes
 
 
 @functools.cache
-def load() -> build.Built:
-    """Build (at first use) and bind the kernel library, once per process."""
-    built = build.load(SOURCE)
-    fn = built.lib.spmm_ell_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+def launcher():
+    """The kernel's C launcher, built at first use and bound once per
+    process."""
+    return build.launcher(SOURCE, "spmm_ell_launch",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 5)
 
 
 def _check(feats: torch.Tensor, nbr_idx: torch.Tensor,
@@ -73,16 +71,9 @@ def spmm_ell(feats: torch.Tensor, nbr_idx: torch.Tensor,
     out = torch.empty((rows, f), dtype=feats.dtype, device=feats.device)
     if rows == 0 or f == 0:
         return out
-    lib = load().lib
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = lib.spmm_ell_launch(
-            feats.data_ptr(), nbr_idx.data_ptr(), nbr_mask.data_ptr(),
-            out.data_ptr(), rows, k, f, s, AGGS.index(agg),
-            DTYPES.index(feats.dtype), stream)
-    if err:
-        raise RuntimeError(f"spmm_ell: kernel launch failed with CUDA error "
-                           f"{err}")
+    build.launch("spmm_ell", launcher(), feats.device, feats.data_ptr(),
+                 nbr_idx.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(),
+                 rows, k, f, s, AGGS.index(agg), DTYPES.index(feats.dtype))
     spmm_ell.launches += 1
     return out
 

@@ -26,7 +26,7 @@ from repro_torch.graphs import csr
 from repro_torch.kernels.embed_bag.embed_bag import embedding_bag
 from repro_torch.kernels.embed_bag.ops import bag_lookup
 from repro_torch.kernels.embed_bag.ref import embedding_bag_ref
-from repro_torch.kernels.relax.fused import fused_sliced_relax
+from repro_torch.kernels.relax.fused import block_table, fused_sliced_relax
 from repro_torch.kernels.relax.gather import gathered_rows_relax
 from repro_torch.kernels.relax.ref import (ellpack_relax_ref,
                                            fused_sliced_relax_ref,
@@ -83,16 +83,28 @@ def test_k1_refuses_wrong_dtype_on_the_card(cuda):
         ellpack_relax(offers.double(), idx, w)
 
 
-# (widths, slice_rows, n, overflow capacity, tie weights, active fraction)
+# (widths, slice_rows, n <= rows, overflow capacity, tie weights, active
+# fraction):
+# ragged run groups, mixed widths, ties, an empty overflow lane; a width-1
+# slice beside width-32 ones; slice_rows 8 at width 2 (16 cells, fewer
+# than a warp); runs that end inside a 1,024-cell chunk (1,280 rows at
+# width 1, 264 rows at width 4); slices wider than a warp (hub_k 64)
 K2_SHAPES = [((2, 2, 2), 8, 20, 8, False, 1.0),
              ((2,) * 40, 8, 300, 16, False, 0.5),
              ((1, 1, 4, 4, 4, 2, 8), 16, 100, 8, False, 1.0),
              ((2, 2, 4, 4), 16, 60, 32, True, 0.7),
              ((4, 32, 16, 2, 1, 8), 256, 1500, 4096, True, 0.6),
-             ((2, 4), 8, 14, 0, False, 1.0)]
+             ((2, 4), 8, 14, 0, False, 1.0),
+             ((32, 32, 1, 32), 64, 250, 64, True, 0.8),
+             ((2,), 8, 8, 4, False, 1.0),
+             ((1,) * 5, 256, 1200, 128, False, 0.9),
+             ((4,) * 33, 8, 260, 32, True, 1.0),
+             ((64, 2, 64, 128), 16, 64, 16, True, 0.7)]
 
 
 def _k2_case(seed, widths, slice_rows, n, ocap, ties, active_frac, device):
+    """Random cells (60 % live, so +inf tombstones fall between live cells)
+    and overflow entries (70 % live) over a random offers vector."""
     rng = np.random.default_rng(seed)
     L = slice_rows * sum(widths)
     wpool = np.asarray([0.5, 1.0] if ties else rng.uniform(0.1, 2.0, 8),
@@ -109,12 +121,10 @@ def _k2_case(seed, widths, slice_rows, n, ocap, ties, active_frac, device):
     if ties:
         dist = np.floor(dist)
     active = rng.random(n) < active_frac
-    _, rowk, base, _ = csr.sliced_geometry(list(widths), slice_rows)
     t = [torch.from_numpy(a).to(device) for a in
          (dist, active, flat_idx, flat_w, osrc, odst, ow,
-          base.astype(np.int32), rowk)]
-    return t[:7], dict(widths=widths, slice_rows=slice_rows, base=t[7],
-                       rowk=t[8])
+          block_table(widths, slice_rows))]
+    return t[:7], dict(widths=widths, slice_rows=slice_rows, blocks=t[7])
 
 
 @pytest.mark.cuda
@@ -131,6 +141,47 @@ def test_k2_matches_plain_version(cuda, widths, slice_rows, n, ocap, ties,
     rb, ra = fused_sliced_relax_ref(*args, widths=widths,
                                     slice_rows=slice_rows)
     assert torch.equal(best, rb) and torch.equal(arg, ra)
+
+
+@pytest.mark.cuda
+def test_k2_tombstones_padding_slices_and_dead_rows(cuda):
+    """Rows whose live cells have +inf tombstones between them, a slice of
+    padding only, rows with no live cell and a row count that ends inside
+    a chunk, with every offer active and with none."""
+    widths, slice_rows, n = (8, 4, 32, 1, 8), 64, 300
+    args, kw = _k2_case(9, widths, slice_rows, n, 32, True, 1.0, cuda)
+    flat_w = args[3].cpu().numpy()
+    _, rowk, base, _ = csr.sliced_geometry(list(widths), slice_rows)
+    for r in range(len(base)):
+        cells = flat_w[base[r]:base[r] + rowk[r]]
+        if r % 3 == 0:                       # live, +inf, live, +inf, ...
+            cells[1::2] = np.inf
+        elif r % 3 == 1 and rowk[r] > 2:     # live cells at both ends
+            cells[1:-1] = np.inf
+        elif r % 7 == 2:                     # no live cell at all
+            cells[:] = np.inf
+    flat_w[base[slice_rows]:base[2 * slice_rows]] = np.inf   # a dead slice
+    args[3] = torch.from_numpy(flat_w).to(cuda)
+    for active in (args[1], torch.zeros_like(args[1])):
+        case = [*args[:1], active, *args[2:]]
+        best, arg = fused_sliced_relax(*case, **kw)
+        rb, ra = fused_sliced_relax_ref(*case, widths=widths,
+                                        slice_rows=slice_rows)
+        assert torch.equal(best, rb) and torch.equal(arg, ra)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_a_table_of_another_layout(cuda):
+    """A chunk table made for other widths raises before any launch."""
+    widths, slice_rows = (8, 4, 32, 1, 8), 64
+    args, kw = _k2_case(3, widths, slice_rows, 300, 32, False, 1.0, cuda)
+    before = fused_sliced_relax.launches
+    for other in ((8, 4, 32, 1, 8, 1), (1,) * 5, (32,) * 5):
+        kw["blocks"] = torch.from_numpy(block_table(other, slice_rows)).to(
+            cuda)
+        with pytest.raises(ValueError, match="block table"):
+            fused_sliced_relax(*args, **kw)
+    assert fused_sliced_relax.launches == before
 
 
 def _k3_case(seed, e, n, ties, mask_frac, device):
@@ -185,10 +236,12 @@ def _same_bits(got, want):
 
 
 # (s, r, k, f, integer features): K = 1, K past a warp, F not a multiple
-# of 4, F = 1, F over one 128-feature chunk; ties with integer features
+# of 4, F = 1, F over one 128-feature chunk; ties with integer features;
+# K not a multiple of the rows in flight (37 at 16 lanes, 17 at 4 lanes)
 K4_SHAPES = [(40, 64, 1, 32, False), (300, 96, 40, 18, False),
              (16, 128, 12, 24, True), (10, 8, 5, 1, True),
-             (1000, 512, 15, 602, False)]
+             (1000, 512, 15, 602, False), (500, 256, 37, 64, False),
+             (200, 128, 17, 16, True)]
 
 
 def _k4_case(seed, s, r, k, f, ties, dtype, device):
@@ -230,20 +283,30 @@ def test_k4_max_propagates_nan(cuda):
     _same_bits(out, spmm_ell_ref(feats, idx, mask, "max"))
 
 
-# (v, b, l, d): DIN's D = 18, L = 1, L past a warp, D over one chunk
-K5_SHAPES = [(500, 64, 100, 18), (40, 24, 1, 32), (300, 8, 45, 130),
-             (30, 10, 7, 1)]
+# (v, b, l, d, tail): DIN's D = 18, L = 1, L past a warp, D over one
+# chunk; with tail padding after each bag's history as well: DIN's
+# serve_p99 widths (512 bags of 100 slots), L = 37 and L = 1 (not
+# multiples of the 16 rows in flight), one bag
+K5_SHAPES = [(500, 64, 100, 18, False), (40, 24, 1, 32, False),
+             (300, 8, 45, 130, False), (30, 10, 7, 1, False),
+             (10_000, 512, 100, 18, True), (300, 64, 37, 18, True),
+             (50, 16, 1, 18, True), (100, 1, 100, 18, True)]
 
 
-def _k5_case(seed, v, b, l, d, dtype, device):
-    """A quarter of the slots padding, the first bags all padding, the
-    second bag one row repeated."""
+def _k5_case(seed, v, b, l, d, dtype, device, tail=False):
+    """A quarter of the slots padding and, past two bags, the first two
+    bags all padding and the third one row repeated; with ``tail``, also
+    -1 after a random length in [1, L] in every bag."""
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((v, d)).astype(np.float32)
     idx = rng.integers(0, v, (b, l)).astype(np.int32)
     idx[rng.random((b, l)) < 0.25] = -1
-    idx[:2] = -1
-    idx[2] = 5
+    if tail:
+        lens = rng.integers(1, l + 1, b)
+        idx[np.arange(l)[None, :] >= lens[:, None]] = -1
+    if b > 2:
+        idx[:2] = -1
+        idx[2] = 5
     return torch.from_numpy(table).to(device, dtype), torch.from_numpy(
         idx).to(device)
 
@@ -251,9 +314,9 @@ def _k5_case(seed, v, b, l, d, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("agg", ["sum", "mean"])
-@pytest.mark.parametrize("v,b,l,d", K5_SHAPES)
-def test_k5_matches_plain_version(cuda, v, b, l, d, agg, dtype):
-    table, idx = _k5_case(v + l + d, v, b, l, d, dtype, cuda)
+@pytest.mark.parametrize("v,b,l,d,tail", K5_SHAPES)
+def test_k5_matches_plain_version(cuda, v, b, l, d, tail, agg, dtype):
+    table, idx = _k5_case(v + l + d, v, b, l, d, dtype, cuda, tail)
     before = embedding_bag.launches
     out = embedding_bag(table, idx, agg=agg)
     torch.cuda.synchronize()
@@ -376,24 +439,49 @@ def test_engine_on_k1_matches_engine_on_plain_version(cuda):
 
 @pytest.mark.cuda
 def test_sliced_engines_on_k2_and_k1_match_plain_version(cuda):
-    """RMAT hubs, small slices and hub threshold: the fused wave on K2, the
-    unfused wave on K1 per run of slices, and the plain wave agree."""
+    """RMAT hubs, small slices and hub threshold: the fused wave on K2 (the
+    default on the card: no kernel flag set), the unfused wave on K1 per
+    run of slices, and the plain wave agree."""
     stream = _rmat_stream()
     kw = dict(relax_backend="sliced", sliced_slice_rows=32, sliced_hub_k=8)
-    want, _ = _run(stream, ellpack_relax, ell_use_kernel=False, **kw)
-    fused, k2 = _run(stream, fused_sliced_relax, sliced_fused=True, **kw)
-    unfused, k1 = _run(stream, ellpack_relax, ell_use_kernel=True, **kw)
-    assert k2 > 0 and k1 > 0
+    want, plain = _run(stream, fused_sliced_relax, ell_use_kernel=False,
+                       sliced_fused=False, **kw)
+    fused, k2 = _run(stream, fused_sliced_relax, **kw)
+    unfused, k1 = _run(stream, ellpack_relax, ell_use_kernel=True,
+                       sliced_fused=False, **kw)
+    assert k2 > 0 and k1 > 0 and plain == 0
     _same_runs(fused, want)
     _same_runs(unfused, want)
 
 
 @pytest.mark.cuda
+def test_auto_engine_launches_k2_by_default(cuda):
+    """relax_backend="auto" with no kernel flag: the RMAT stream's first
+    rebuild falls back to sliced, whose waves run on K2; the result equals
+    the plain engine's."""
+    stream = _rmat_stream()
+    kw = dict(sliced_slice_rows=32, sliced_hub_k=8)
+    n, cap, log = stream
+    before = fused_sliced_relax.launches
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, relax_backend="auto", **kw)
+    got = eng.ingest_log(log)
+    assert eng.backend_name == "sliced"
+    assert fused_sliced_relax.launches > before
+    want, plain = _run(stream, fused_sliced_relax, relax_backend="auto",
+                       ell_use_kernel=False, sliced_fused=False, **kw)
+    assert plain == 0
+    _same_runs(got, want)
+
+
+@pytest.mark.cuda
 def test_sparse_engine_on_k3_matches_plain_version(cuda):
+    """The sparse frontier with no kernel flag runs K3 on the card; with
+    frontier_kernel=False it runs the plain version; both agree."""
     stream = _rmat_stream()
     kw = dict(frontier_mode="sparse", frontier_cap=64)
-    got, launched = _run(stream, gathered_rows_relax, frontier_kernel=True,
-                         **kw)
-    want, plain = _run(stream, gathered_rows_relax, **kw)
+    got, launched = _run(stream, gathered_rows_relax, **kw)
+    want, plain = _run(stream, gathered_rows_relax, frontier_kernel=False,
+                       **kw)
     assert launched > 0 and plain == 0
     _same_runs(got, want)

@@ -197,7 +197,8 @@ def _jax_run(mode: str, backend: str):
 @pytest.mark.parametrize("mode,backend,kernel", [
     ("sparse", "segment", False), ("sparse", "segment", True),
     ("auto", "segment", True), ("sparse", "sliced", True),
-    ("auto", "sliced", False)])
+    ("auto", "sliced", False), ("sparse", "segment", None),
+    ("auto", "sliced", None)])
 def test_engine_bit_identical_to_reference(mode, backend, kernel,
                                            monkeypatch):
     n, cap, log = _stream()
@@ -276,3 +277,27 @@ def test_frontier_knob_discipline():
     with pytest.raises(ValueError, match="valid modes"):
         make_engine(num_vertices=8, edge_capacity=8, device="cpu",
                     frontier_mode="psychic")
+
+
+def test_frontier_kernel_resolves_by_device():
+    """Unset, ``frontier_kernel`` is the kernel iff the device is CUDA: a
+    CPU engine runs the plain version and keeps the knob unset; unset or
+    False (the reference's default) it is valid under "dense", True is
+    not."""
+    from repro_torch.core.engine import resolve_kernel
+    assert resolve_kernel(None, torch.device("cuda"))
+    assert not resolve_kernel(None, torch.device("cpu"))
+    for mode in ("sparse", "auto"):
+        eng = make_engine(num_vertices=8, edge_capacity=8, device="cpu",
+                          frontier_mode=mode)
+        assert eng._frontier_kernel is False
+        assert eng.cfg.frontier_kernel is None
+        eng = make_engine(num_vertices=8, edge_capacity=8, device="cpu",
+                          frontier_mode=mode, frontier_kernel=True)
+        assert eng._frontier_kernel is True
+    make_engine(num_vertices=8, edge_capacity=8, device="cpu")
+    make_engine(num_vertices=8, edge_capacity=8, device="cpu",
+                frontier_kernel=False)
+    with pytest.raises(ValueError, match="frontier_kernel"):
+        make_engine(num_vertices=8, edge_capacity=8, device="cpu",
+                    frontier_mode="dense", frontier_kernel=True)

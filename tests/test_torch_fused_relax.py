@@ -85,12 +85,10 @@ def _port(dist, active, flat_idx, flat_w, osrc, odst, ow, widths,
     t = [torch.from_numpy(np.asarray(a)) for a in
          (dist, active, flat_idx, flat_w, osrc, odst, ow)]
     b, a = fused_sliced_relax_ref(*t, widths=widths, slice_rows=slice_rows)
-    _, rowk, base, _ = csr.sliced_geometry(list(widths), slice_rows)
     before = fused.fused_sliced_relax.launches
     wb, wa = fused.fused_sliced_relax(
         *t, widths=widths, slice_rows=slice_rows,
-        base=torch.from_numpy(base.astype(np.int32)),
-        rowk=torch.from_numpy(rowk))
+        blocks=torch.from_numpy(fused.block_table(widths, slice_rows)))
     assert fused.fused_sliced_relax.launches == before   # CPU: no launch
     assert torch.equal(b, wb) and torch.equal(a, wa)
     assert b.dtype == torch.float32 and a.dtype == torch.int32
@@ -199,3 +197,62 @@ def test_sliced_geometry_matches_reference(widths, sr):
     for got, want in zip(csr.sliced_geometry(list(widths), sr),
                          jcsr.sliced_geometry(list(widths), sr)):
         np.testing.assert_array_equal(got, want)
+
+
+# (widths, slice_rows) of the card tests' K2 shapes
+# (test_torch_cuda_kernels.py K2_SHAPES)
+K2_GEOMETRIES = [((2, 2, 2), 8), ((2,) * 40, 8), ((1, 1, 4, 4, 4, 2, 8), 16),
+                 ((2, 2, 4, 4), 16), ((4, 32, 16, 2, 1, 8), 256), ((2, 4), 8),
+                 ((32, 32, 1, 32), 64), ((2,), 8), ((1,) * 5, 256),
+                 ((4,) * 33, 8), ((64, 2, 64, 128), 16)]
+
+
+@pytest.mark.parametrize("widths,sr", K2_GEOMETRIES)
+def test_block_table_covers_the_sliced_geometry(widths, sr):
+    """The CUDA kernel's chunk table, by brute force against
+    ``sliced_geometry``: every cell of the flat buffer lies in exactly one
+    chunk, inside the row the chunk assigns it to (base[r] <= cell <
+    base[r] + rowk[r], rowk[r] = 2^log2k), every row is in exactly one
+    chunk, and a chunk holds whole rows, at most max(BLOCK_CELLS, k)
+    cells."""
+    table = fused.block_table(widths, sr)
+    assert table.dtype == np.int32 and table.ndim == 1
+    _, rowk, base, cells = csr.sliced_geometry(list(widths), sr)
+    cover = np.zeros(cells, np.int64)
+    rows = np.zeros(len(rowk), np.int64)
+    for cell0, row0, log2k, n in table.reshape(-1, 4):
+        k = 1 << int(log2k)
+        assert 0 < n <= max(fused.BLOCK_CELLS, k) and n % k == 0
+        c = cell0 + np.arange(n)
+        r = row0 + np.arange(n) // k
+        assert (rowk[r] == k).all()
+        assert ((base[r] <= c) & (c < base[r] + rowk[r])).all()
+        cover[c] += 1
+        rows[row0:row0 + n // k] += 1
+    assert (cover == 1).all() and (rows == 1).all()
+
+
+@pytest.mark.parametrize("widths,sr", [((2, 2, 2), 8), ((4, 32, 1), 16)])
+def test_wrapper_refuses_a_table_of_another_layout(widths, sr):
+    """The wrapper holds ``blocks`` and ``flat_w`` to the size the layout
+    gives, on the CPU as on the card: a table made for other widths or
+    another slice height, or a flat buffer of another length, raises."""
+    n = 40
+    L = sr * sum(widths)
+    t = [torch.zeros(n), torch.ones(n, dtype=torch.bool),
+         torch.zeros(L, dtype=torch.int32), torch.full((L,), INF),
+         torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
+         torch.full((4,), INF)]
+    kw = dict(widths=widths, slice_rows=sr)
+    good = torch.from_numpy(fused.block_table(widths, sr))
+    fused.fused_sliced_relax(*t, **kw, blocks=good)
+    others = (fused.block_table((1,) + widths, sr),
+              fused.block_table((1, 2) * len(widths), sr),
+              fused.block_table(widths, 64 * sr), good.numpy()[:-4])
+    for other in others:
+        with pytest.raises(ValueError, match="block table"):
+            fused.fused_sliced_relax(*t, **kw,
+                                     blocks=torch.from_numpy(other))
+    short = [*t[:2], t[2][:-1], t[3][:-1], *t[4:]]
+    with pytest.raises(ValueError, match="cells"):
+        fused.fused_sliced_relax(*short, **kw, blocks=good)

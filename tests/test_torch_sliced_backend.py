@@ -36,6 +36,7 @@ from repro.graphs import window
 from repro_torch import EngineConfig, make_engine
 from repro_torch.core import delete, ingest
 from repro_torch.core.backends import sliced as sl
+from repro_torch.core.frontier import OutAdjacency
 from repro_torch.core.oracle import check_tree
 from repro_torch.core.state import SSSPState
 from repro_torch.graphs import csr, generators
@@ -342,3 +343,70 @@ def test_knob_validation_matches_reference():
     EngineConfig(16, 64, 0, relax_backend="auto", ell_init_k=2,
                  sliced_hub_k=8, sliced_fused=True, ell_use_kernel=False,
                  device="cpu")
+
+
+# ----------------------------------------------------------- kernel switches --
+def test_kernel_switches_resolve_by_device():
+    """None = the kernel iff the device is CUDA (no card needed to resolve
+    for one); True and False hold on either device.  A CPU engine with the
+    switches unset resolves them to False, as in the reference, routes that
+    to the sliced backend, and leaves its config as the caller set it."""
+    from repro_torch.core.engine import resolve_kernel
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert resolve_kernel(None, cuda) and not resolve_kernel(None, cpu)
+    for flag in (True, False):
+        assert resolve_kernel(flag, cuda) == resolve_kernel(flag, cpu) == flag
+    eng = make_engine(num_vertices=64, edge_capacity=256, source=0,
+                      relax_backend="sliced", frontier_mode="sparse",
+                      device="cpu")
+    assert (eng._use_kernel, eng._use_fused, eng._frontier_kernel) == \
+        (False, False, False)
+    assert not eng.backend.use_fused and not eng.backend.use_kernel
+    assert (eng.cfg.ell_use_kernel, eng.cfg.sliced_fused,
+            eng.cfg.frontier_kernel) == (None, None, None)
+    eng = make_engine(num_vertices=64, edge_capacity=256, source=0,
+                      relax_backend="auto", sliced_fused=True, device="cpu")
+    eng._fallback_to_sliced()
+    assert eng.backend.use_fused and eng.cfg.sliced_fused is True
+
+
+@pytest.mark.parametrize("backend", ["segment", "ellpack", "sliced", "auto"])
+def test_unset_sliced_fused_validates_as_unset(backend):
+    """The unset switch, and False (the reference's default), is valid with
+    every backend; True is a sliced knob that the dense-ELL and segment
+    backends refuse."""
+    EngineConfig(16, 64, 0, relax_backend=backend, device="cpu")
+    EngineConfig(16, 64, 0, relax_backend=backend, sliced_fused=False,
+                 device="cpu")
+    if backend in ("segment", "ellpack"):
+        with pytest.raises(ValueError, match="sliced_fused"):
+            EngineConfig(16, 64, 0, relax_backend=backend, sliced_fused=True,
+                         device="cpu")
+    else:
+        EngineConfig(16, 64, 0, relax_backend=backend, sliced_fused=True,
+                     device="cpu")
+
+
+def test_state_block_table_follows_the_layout():
+    """``SlicedEllState.blocks`` is K2's chunk table of the planner's
+    current widths, made with ``base``/``rowk`` at every (re)build of a
+    state for K2, and not made for any other (the sparse frontier's
+    sidecar, the unfused backend)."""
+    from repro_torch.kernels.relax import fused
+    n, src, dst, w = jgen.rmat(8, 6, seed=4)
+    pl = sl.SlicedEllPlanner(n, slice_rows=16, hub_k=32)
+    for arrays in (pl.empty_host(), pl.rebuild_host(src, dst, w),
+                   pl.rebuild_host(src[::2], dst[::2], w[::2])):
+        state = sl.SlicedEllState.from_host(pl, arrays, "cpu")
+        np.testing.assert_array_equal(state.blocks.numpy(),
+                                      fused.block_table(pl.widths, pl.sr))
+        np.testing.assert_array_equal(state.base.numpy(), pl.base)
+        assert sl.SlicedEllState.from_host(
+            pl, arrays, "cpu", with_blocks=False).blocks is None
+    assert len(set(pl.widths)) > 1
+    cfg = EngineConfig(n, 64, 0, relax_backend="sliced", device="cpu",
+                       sliced_slice_rows=16)
+    for use_fused in (False, True):
+        be = sl.SlicedBackend(cfg, n, use_fused=use_fused)
+        assert (be.state.blocks is not None) == use_fused
+    assert OutAdjacency(n, "cpu").state.blocks is None
