@@ -9,13 +9,18 @@ Phases (any failure raises and exits non-zero):
      (``spmm_ell``) and K5 (``embedding_bag``) from the repository's CUDA
      sources, one nvcc per source, all started together;
   2. each kernel against its plain torch version on the card, bit for bit,
-     at edge cases (K1: K = 1, non-power-of-two K, K > 32, +inf rows,
-     ties; K2: ragged run groups, empty and zero-length overflow lanes,
+     at edge cases (K1: K = 1, non-power-of-two K, K > 32, K = 128 and
+     130, +inf rows and all-+inf blocks, ties, R not a multiple of the rows
+     a block holds, scattered +inf cells and the ELL planner's row-tail
+     padding, views at a cell offset that is not a multiple of 4, with the
+     variant each case took; K2: ragged run groups, empty and zero-length overflow lanes,
      all-+inf rows, ties across the lanes, inactive sources, rows without
      entries, a width-1 slice beside width-32 ones, slices of fewer cells
      than a warp, runs ending inside a chunk, +inf tombstones between live
      cells, an all-padding slice, slices wider than a warp; K3: ties, an
-     empty and an all-masked edge list; K4: K = 1, K > 32, K not a multiple
+     empty and an all-masked edge list, one hub row hit by every slot,
+     duplicate slots, R = 1, the same inputs twice in a row, a call
+     captured in a CUDA graph and replayed on new inputs; K4: K = 1, K > 32, K not a multiple
      of the rows in flight, all-masked rows, -1 in masked cells, duplicate
      indices, ties and NaN for max, live indices past either end, every
      agg, f32 and bf16; K5: all-padded bags, L = 1, L > 32, L = 37, B = 1,
@@ -25,7 +30,8 @@ Phases (any failure raises and exits non-zero):
      batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
      at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
      reset just before and read just after; final snapshot against scipy's
-     Dijkstra; K1 against its plain version and timed on the final block;
+     Dijkstra; K1 against its plain version and timed on the final block
+     (three ways, as phase 7 times K4 and K5);
      the host control plane (allocator + ELL planner) replayed alone; the
      path re-run under torch.profiler for its device time;
   4. the hub path: ``relax_backend="auto"`` with no kernel flag (the card's
@@ -33,18 +39,19 @@ Phases (any failure raises and exits non-zero):
      factor 8, seed 7; the dense ELL block falls back to the sliced layout
      at its first rebuild), K1 and K2 counts reset just before and read
      just after; Dijkstra check; K2 against its plain version and timed on
-     the final layout; the host control plane (allocator + sliced planner)
+     the final layout (three ways); the host control plane (allocator + sliced planner)
      replayed alone; the path re-run under torch.profiler for its device
      time and K2's share of it;
   5. at 2^16 on the RMAT recipe: auto on K2 (the default), sliced on K1 per
-     run of slices, sliced plain and segment engines identical at every
-     query;
+     run of slices (K1's vector and scalar variants both), sliced plain and
+     segment engines identical at every query;
   6. the sparse frontier: the localized stream at 2^20 (``rmat(20, 4,
      seed=11)`` ingested first, then 48 batches of 8 fresh edges inside a
      random 1k window) through ``frontier_mode="sparse"`` with no kernel
      flag (K3 by default) against a dense segment engine, K3's count reset
      just before the batches and read just after; K3 against its plain
-     version at the shapes that path gave it; then the 2^16 RMAT
+     version at the shapes that path gave it, timed three ways at the
+     largest; then the 2^16 RMAT
      sliding-window stream (DEL epochs too) sparse on K3 against sparse on
      the plain version;
   7. the neighbour-aggregation and embedding-bag entry points,
@@ -62,8 +69,9 @@ Phases (any failure raises and exits non-zero):
      for sum and mean; never called by the port): back-to-back CUDA
      events, device time per call (a CUDA graph of 20 calls replayed, every
      kernel of the call) and host time per call (the submission alone);
-  8. the card line, a JSON ``kernels`` line, and as the last line
-     ``{"ok": true, "device": {...}}``.
+  8. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
+     ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``), and as the
+     last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -253,6 +261,19 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return seconds / calls * 1e6
 
 
+def kernel_times(torch, fn, iters: int) -> dict:
+    """fn() timed three ways: back to back (``ms``, CUDA events over
+    ``iters`` calls), device time per call (``device_ms``, a replayed CUDA
+    graph) and host time per call (``host_us``, the submission alone)."""
+    return {"ms": cuda_ms(torch, fn, iters),
+            "device_ms": device_ms(torch, fn), "host_us": host_us(torch, fn)}
+
+
+def times_text(t: dict) -> str:
+    return (f"{t['ms']:.4f} ms back to back, device {t['device_ms']:.4f} "
+            f"ms, host {t['host_us']:.1f} us per call")
+
+
 def sync_us(torch, n: int) -> float:
     """Host time of one ``bool(frontier.any())`` read at N = n."""
     f = torch.rand(n, device="cuda") < 0.01
@@ -324,7 +345,13 @@ def same_results(name, got, want) -> None:
 
 
 # ------------------------------------------------------- kernel edge cases --
-def k1_case(torch, seed: int, n: int, rows: int, k: int, ties: bool):
+def k1_case(torch, seed: int, n: int, rows: int, k: int, ties: bool,
+            tail: bool = False):
+    """offers (n,) with +inf entries and an ELL block (rows, k) whose row 0
+    is all tombstones; the other +inf cells are scattered, or with
+    ``tail`` laid out as the ELL planner lays them out: a live head of
+    fill[r] cells with tombstones among them, then never-written cells
+    (idx 0, w +inf) to the row's end."""
     g = torch.Generator().manual_seed(seed)
     if ties:
         offers = torch.randint(0, 4, (n,), generator=g).float()
@@ -334,9 +361,27 @@ def k1_case(torch, seed: int, n: int, rows: int, k: int, ties: bool):
         w = 0.5 + 1.5 * torch.rand(rows, k, generator=g)
     offers[torch.rand(n, generator=g) < 0.3] = float("inf")
     idx = torch.randint(0, n, (rows, k), generator=g, dtype=torch.int32)
-    w[torch.rand(rows, k, generator=g) < 0.2] = float("inf")
+    if tail:
+        fill = torch.randint(0, k + 1, (rows,), generator=g)
+        past = torch.arange(k)[None, :] >= fill[:, None]
+        w[past], idx[past] = float("inf"), 0
+        w[~past & (torch.rand(rows, k, generator=g) < 0.15)] = float("inf")
+    else:
+        w[torch.rand(rows, k, generator=g) < 0.2] = float("inf")
     w[0] = float("inf")                      # an all-tombstone row
     return [t.cuda() for t in (offers, idx, w)]
+
+
+def k1_view(torch, args, offset: int):
+    """The block of ``args`` as a view at cell ``offset`` of a flat buffer,
+    as ``sliced_gather_min`` passes one run of slices."""
+    offers, idx, w = args
+    rows, k = idx.shape
+    flat_i = idx.new_zeros(offset + rows * k)
+    flat_w = w.new_zeros(offset + rows * k)
+    flat_i[offset:], flat_w[offset:] = idx.reshape(-1), w.reshape(-1)
+    return [offers, flat_i[offset:].view(rows, k),
+            flat_w[offset:].view(rows, k)]
 
 
 def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
@@ -386,7 +431,10 @@ def k2_check(torch, args, kw) -> float:
     return compare(torch, "K2", fused_sliced_relax(*args, **kw), plain)
 
 
-def k3_case(torch, seed, e, n, *, ties=False, mask_frac=0.7):
+def k3_case(torch, seed, e, n, *, ties=False, mask_frac=0.7, hub=False,
+            dup=False):
+    """E edge slots over n rows; ``hub`` sends every slot to one row,
+    ``dup`` makes the second half of the slots a copy of the first."""
     rng = np.random.default_rng(seed)
     if ties:
         wd = rng.integers(0, 3, e).astype(np.float32)
@@ -399,6 +447,12 @@ def k3_case(torch, seed, e, n, *, ties=False, mask_frac=0.7):
     src = rng.integers(0, n, e).astype(np.int32)
     nbr = rng.integers(0, n, e).astype(np.int32)
     mask = rng.random(e) < mask_frac
+    if hub:
+        nbr[:] = n // 2
+    if dup:
+        h = e // 2
+        for a in (wd, src, nbr, w, mask):
+            a[h:2 * h] = a[:h]
     return [torch.from_numpy(a).cuda() for a in (wd, src, nbr, w, mask)]
 
 
@@ -407,6 +461,31 @@ def k3_check(torch, args, num_rows) -> float:
     from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
     return compare(torch, "K3", gathered_rows_relax(*args, num_rows=num_rows),
                    gathered_rows_relax_ref(*args, num_rows=num_rows))
+
+
+def k3_graph_check(torch) -> None:
+    """K3 captured in a CUDA graph, replayed, then replayed again after the
+    inputs were overwritten in place: both replays equal the plain
+    version on the inputs of the moment."""
+    from repro_torch.kernels.relax.gather import gathered_rows_relax
+    from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
+    n = 5000
+    args = k3_case(torch, 70, 4096, n, ties=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gathered_rows_relax(*args, num_rows=n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gathered_rows_relax(*args, num_rows=n)
+    for seed in (71, 72):
+        if seed == 72:
+            for a, b in zip(args, k3_case(torch, seed, 4096, n, ties=True)):
+                a.copy_(b)
+        graph.replay()
+        compare(torch, "K3 graph", out,
+                gathered_rows_relax_ref(*args, num_rows=n))
 
 
 def same_bits(torch, name, got, want) -> float:
@@ -532,16 +611,40 @@ def gather_edge_cases(torch) -> None:
 def kernel_edge_cases(torch) -> None:
     from repro_torch.kernels.relax import relax as k1
     from repro_torch.kernels.relax.ref import ellpack_relax_ref
-    cases = [(50, 8, 1), (300, 256, 3), (5000, 4096, 8), (5000, 4096, 17),
-             (64, 256, 32), (70000, 65536, 33), (1000, 512, 40),
-             (1 << 20, 1 << 20, 32)]
+    # (n, rows, K): K = 1, 3, 4, 5, 8, 17, 32, 33, 40, 64, 128, 130; rows
+    # not a multiple of the rows a block holds (3, 4,097 at K = 32); the
+    # ER path's shape
+    cases = [(50, 8, 1), (300, 256, 3), (700, 130, 4), (300, 256, 5),
+             (5000, 4096, 8), (5000, 4096, 17), (64, 256, 32),
+             (300, 3, 32), (5000, 4097, 32), (70000, 65536, 33),
+             (1000, 512, 40), (900, 99, 64), (900, 70, 128),
+             (900, 33, 130), (1 << 20, 1 << 20, 32)]
+    taken = {"vector": {}, "scalar": {}}   # labels, in case order
+    n_cases = 0
+
+    def check(args, label):
+        nonlocal n_cases
+        taken[k1.variant(args[1], args[2])][label] = None
+        compare(torch, "K1", k1.ellpack_relax(*args),
+                ellpack_relax_ref(*args))
+        n_cases += 1
+
     for i, (n, rows, k) in enumerate(cases):
         for ties in (False, True):
-            args = k1_case(torch, i, n, rows, k, ties)
-            compare(torch, "K1", k1.ellpack_relax(*args),
-                    ellpack_relax_ref(*args))
-    print(f"[2] K1 bit-identical to the plain version on {2 * len(cases)} "
-          f"cases (K in {sorted({c[2] for c in cases})})")
+            for tail in (False, True):
+                check(k1_case(torch, i, n, rows, k, ties, tail), f"K={k}")
+    for i, (offset, k) in enumerate([(3, 32), (4, 32), (1, 4), (2, 36),
+                                     (5, 1), (6, 2)]):
+        check(k1_view(torch, k1_case(torch, 50 + i, 500, 300, k, True, True),
+                      offset), f"view at cell {offset}, K={k}")
+    offers, idx, w = k1_case(torch, 60, 4000, 3000, 32, False, True)
+    check([offers, idx, torch.full_like(w, float("inf"))], "all +inf weights")
+    check([torch.full_like(offers, float("inf")), idx, w], "all +inf offers")
+    print(f"[2] K1 bit-identical to the plain version on {n_cases} cases "
+          f"(K in {sorted({c[2] for c in cases})}, scattered +inf cells and "
+          f"the ELL planner's row-tail padding); vector variant: "
+          f"{', '.join(taken['vector'])}; scalar variant: "
+          f"{', '.join(taken['scalar'])}")
 
     k2_cases = [
         ("ragged run groups", dict(widths=(2,) * 40, slice_rows=8, n=300,
@@ -590,15 +693,23 @@ def kernel_edge_cases(torch) -> None:
           f"cases ({', '.join(c[0] for c in k2_cases)}, a dead and a "
           f"zero-length overflow lane, all-+inf offers)")
 
-    k3_cases = [(85, 40, False, 0.7), (300, 17, True, 1.0),
-                (64, 64, False, 0.0), (0, 12, False, 0.7),
-                (1 << 18, 1 << 16, True, 0.8), (1 << 20, 1 << 20, False, 0.9)]
-    for i, (e, n, ties, mask_frac) in enumerate(k3_cases):
-        k3_check(torch, k3_case(torch, i, e, n, ties=ties,
-                                mask_frac=mask_frac), n)
+    k3_cases = [(85, 40, {}), (300, 17, dict(ties=True, mask_frac=1.0)),
+                (64, 64, dict(mask_frac=0.0)), (0, 12, {}),
+                (1 << 18, 1 << 16, dict(ties=True, mask_frac=0.8)),
+                (1 << 20, 1 << 20, dict(mask_frac=0.9)),
+                (4096, 5000, dict(ties=True, hub=True, mask_frac=0.9)),
+                (3000, 300, dict(ties=True, dup=True, mask_frac=1.0)),
+                (300, 1, dict(ties=True)), (16_384, 1 << 20, {})]
+    for i, (e, n, kw) in enumerate(k3_cases):
+        args = k3_case(torch, i, e, n, **kw)
+        k3_check(torch, args, n)
+        k3_check(torch, args, n)   # again: no key of the first call leaks
+    k3_graph_check(torch)
     print(f"[2] K3 bit-identical to the plain version on {len(k3_cases)} "
-          f"cases (ties, an all-masked and an empty edge list, up to "
-          f"E = 2^20)")
+          f"cases, each called twice in a row (ties, an all-masked and an "
+          f"empty edge list, one hub row hit by every slot, duplicate "
+          f"slots, R = 1, up to E = 2^20), and in a CUDA graph replayed on "
+          f"new inputs")
     gather_edge_cases(torch)
 
 
@@ -631,19 +742,20 @@ def dense_ell_path(torch):
     offers, nbr_idx, nbr_w = eng.state.sssp.dist, ell.nbr_idx, ell.nbr_w
     err = compare(torch, "K1", k1.ellpack_relax(offers, nbr_idx, nbr_w),
                   ellpack_relax_ref(offers, nbr_idx, nbr_w))
-    ms = cuda_ms(torch, lambda: k1.ellpack_relax(offers, nbr_idx, nbr_w), 50)
+    times = kernel_times(
+        torch, lambda: k1.ellpack_relax(offers, nbr_idx, nbr_w), 50)
     plain_ms = cuda_ms(torch, lambda: ellpack_relax_ref(offers, nbr_idx,
                                                         nbr_w), 10)
     rows, k = nbr_idx.shape
-    # offers, every weight, the index of each finite-weight cell, best + arg
     live = int(torch.isfinite(nbr_w).sum())
-    nbytes = offers.numel() * 4 + rows * k * 4 + live * 4 + rows * 8
+    nbytes = k1.wave_bytes(offers.numel(), rows, k, live)
     bound_ms, bound_by = bound(nbytes, 2 * live)
-    print(f"[3] K1 at R={rows} K={k} N={offers.numel()} ({live} live "
-          f"cells): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at 3.35 TB/s); K1 "
-          f"device time on the path ~ {launches * ms / 1e3:.2f} s of "
-          f"{wall:.2f} s")
+    kind = k1.variant(nbr_idx, nbr_w)
+    print(f"[3] K1 ({kind} variant) at R={rows} K={k} "
+          f"N={offers.numel()} ({live} live cells): {times_text(times)} "
+          f"(plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); K1 device time on the path "
+          f"~ {launches * times['device_ms'] / 1e3:.3f} s of {wall:.2f} s")
     del eng, offers, nbr_idx, nbr_w, ell, q
     host_s = control_plane_seconds(
         e, log, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
@@ -654,12 +766,19 @@ def dense_ell_path(torch):
     print(f"[3] device time (profiled re-run): {dev_s:.3f} s = "
           f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
           + top_ops(top))
+    k1_ops = [(sec, cnt) for name, sec, cnt in top
+              if "ellpack_relax_kernel" in name]
+    assert k1_ops, "the profiled dense-ELL path shows no K1 kernel"
+    print(f"[3] K1 device time on the path (profiled): "
+          f"{sum(sec for sec, _ in k1_ops):.4f} s over "
+          f"{sum(cnt for _, cnt in k1_ops)} launches")
     return {"name": "ellpack_relax", "route": "cuda",
             "source": "src/repro_torch/kernels/relax/csrc/ellpack_relax.cu",
             "replaces": "src/repro/kernels/relax/relax.py:49",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, **times,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "check": "bit-identical"}
+            "library_ms": None, "check": "bit-identical",
+            "variant": kind}
 
 
 def hub_path(torch):
@@ -701,7 +820,8 @@ def hub_path(torch):
     args = (dist, active, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow)
     kw = dict(widths=tuple(pl.widths), slice_rows=pl.sr, blocks=st.blocks)
     err = k2_check(torch, args, kw)
-    ms = cuda_ms(torch, lambda: k2.fused_sliced_relax(*args, **kw), 50)
+    times = kernel_times(torch, lambda: k2.fused_sliced_relax(*args, **kw),
+                         50)
     passes = per_launch_ms(torch, lambda: k2.fused_sliced_relax(*args, **kw))
     plain_ms = cuda_ms(torch, lambda: fused_sliced_relax_ref(
         *args, widths=kw["widths"], slice_rows=pl.sr), 3)
@@ -717,11 +837,12 @@ def hub_path(torch):
     bound_ms, bound_by = bound(nbytes, 2 * (live_l + live_c))
     tpu_bytes = k2.fused_cost(pl.widths, pl.sr, n, pl.ocap)["bytes"]
     print(f"[4] K2 at N={n} R={pl.rows} L={pl.cells} ({live_l} live) "
-          f"C={pl.ocap} ({live_c} live): {ms:.4f} "
-          f"ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"C={pl.ocap} ({live_c} live): {times_text(times)} "
+          f"(plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
           f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; the TPU kernel's per-run "
           f"model fused_cost charges {tpu_bytes / 1e9:.2f} GB); K2 device "
-          f"time on the path ~ {l2 * ms / 1e3:.2f} s of {wall:.2f} s; per "
+          f"time on the path ~ {l2 * times['device_ms'] / 1e3:.3f} s of "
+          f"{wall:.2f} s; per "
           f"launch (profiled): "
           + "; ".join(f"{name.split('(')[0]} {t:.4f} ms" for name, t in passes))
     del eng, dist, active, args, kw, st, q
@@ -748,7 +869,7 @@ def hub_path(torch):
             "source":
                 "src/repro_torch/kernels/relax/csrc/fused_sliced_relax.cu",
             "replaces": "src/repro/kernels/relax/fused.py:122",
-            "launches": l2, "max_abs_err": err, "ms": ms,
+            "launches": l2, "max_abs_err": err, **times,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "check": "bit-identical"}
 
@@ -777,10 +898,22 @@ def hub_cross_check(torch) -> None:
     want = runs["segment"][0]
     for name, (res, *_) in runs.items():
         same_results(name, res, want)
-    planner = runs["sliced on K1"][3].backend.planner
+    backend = runs["sliced on K1"][3].backend
+    planner, st = backend.planner, backend.state
+    variants = {"vector": 0, "scalar": 0}
+    off = 0
+    for k, cnt in csr.width_runs(planner.widths):   # sliced_gather_min's views
+        cells = planner.sr * cnt * k
+        blk = slice(off, off + cells)
+        variants[k1.variant(st.flat_idx[blk].view(-1, k),
+                            st.flat_w[blk].view(-1, k))] += 1
+        off += cells
+    assert variants["vector"] and variants["scalar"], variants
     print(f"[5] n={n}: auto+K2 (K2 launches {runs['auto+K2'][1][1]}), sliced "
           f"on K1 (K1 launches {runs['sliced on K1'][1][0]}, "
-          f"{len(csr.width_runs(planner.widths))} per wave at the end), "
+          f"{len(csr.width_runs(planner.widths))} per wave at the end: "
+          f"{variants['vector']} on the vector variant, "
+          f"{variants['scalar']} on the scalar one), "
           f"sliced plain and segment identical at all {len(want)} queries "
           f"(stats {want[-1].epoch_stats}); wall s "
           + ", ".join(f"{k} {v[2]:.2f}" for k, v in runs.items()))
@@ -857,23 +990,23 @@ def sparse_path(torch):
     for e, (args, kw) in sorted(shapes.items()):
         err = k3_check(torch, args, kw["num_rows"])
     e, (args, kw) = max(shapes.items())
-    ms = cuda_ms(torch, lambda: k3.gathered_rows_relax(*args, **kw), 200)
+    times = kernel_times(torch, lambda: k3.gathered_rows_relax(*args, **kw),
+                         200)
     plain_ms = cuda_ms(torch, lambda: gathered_rows_relax_ref(*args, **kw),
                        20)
-    # one mask byte per slot, 16 bytes per masked-in slot, best + arg
     live = int(args[4].sum())
-    nbytes = e + 16 * live + 8 * kw["num_rows"]
+    nbytes = k3.wave_bytes(e, live, kw["num_rows"])
     bound_ms, bound_by = bound(nbytes, 2 * live)
     print(f"[6] K3 bit-identical to its plain version at the path's edge "
           f"list lengths {sorted(shapes)}; at E={e} ({live} masked in) "
-          f"R={kw['num_rows']}: "
-          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
-          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s)")
+          f"R={kw['num_rows']}: {times_text(times)} (plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms = {nbytes / 1e6:.2f} MB at 3.35 "
+          f"TB/s)")
     return {"name": "gathered_rows_relax", "route": "cuda",
             "source":
                 "src/repro_torch/kernels/relax/csrc/gathered_rows_relax.cu",
             "replaces": "src/repro/kernels/relax/gather.py:92",
-            "launches": l3, "max_abs_err": err, "ms": ms,
+            "launches": l3, "max_abs_err": err, **times,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "check": "bit-identical"}
 
@@ -1007,7 +1140,8 @@ def gather_entry(name, source, replaces, shapes):
             "launches": sum(x["launches"] for x in shapes),
             "max_abs_err": max(x["max_abs_err"] for x in shapes),
             **{k: head[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
             "check": "bit-identical", "headline": head["shape"],
             "shapes": shapes}
 

@@ -6,85 +6,178 @@
 //   best[r] = min_k offers[idx[r,k]] + w[r,k]
 //   arg[r]  = smallest idx[r,k] attaining best[r];  -1 where best[r] == +inf
 //
-// Bound: device-memory bandwidth.  A wave streams idx and w once
-// (R*K*8 bytes), reads the offers vector (N*4 bytes; the gathers hit L2,
-// which holds it whole at N = 2^20: 4 MB of the 50 MB) and writes R*8 bytes.
-// At R = N = 2^20 and K = 32 that is ~281 MB, ~84 us at 3.35 TB/s.  The
-// arithmetic (one add and one compare per cell) is negligible.
+// Bound: device-memory bandwidth.  Each input read once and each output
+// written once is the offers vector (4N), every weight (4RK), the index of
+// each finite-weight cell (4 live) and best + arg (8R): relax.wave_bytes.
+// At the ER path's final block (R = N = 2^20, K = 32, 6.6M of 33.5M cells
+// live) that is 173.3 MB, 0.0517 ms at 3.35 TB/s.  The gathers of offers
+// hit L2, which holds the vector whole (4 MB of 50 MB).  The arithmetic
+// (one add and one compare per live cell) is negligible.
 //
-// Design: one group of LANES = min(32, next_pow2(K)) threads per row (a warp
-// for K >= 32, a power-of-two sub-warp below).  Lanes stride over the row so
-// neighbouring threads load neighbouring idx/w words (coalesced), then gather
-// offers[idx] through the read-only path.  Each lane keeps a running
-// (value, id) pair under the lexicographic rule — smaller value wins, among
-// equal values the smaller id — and a shuffle-xor reduction within the group
-// applies the same rule, so the result is exactly the plain version's
-// min-then-smallest-id.  No shared memory, no atomics.  The add is
-// __fadd_rn (round-to-nearest, never contracted), so values are bit-identical
-// to the plain version's f32 add.
+// Design:
+//  - Weight first.  A lane owns V consecutive cells of a row: V = 4 (one
+//    float4 of w, one int4 of idx) where K % 4 == 0 and idx and w start
+//    on a 16-byte boundary, else V = 1 (the scalar variant: a view at any
+//    cell offset, as sliced_gather_min passes one run of slices).  The
+//    lane loads its weights, loads the matching indices only if one of
+//    them is finite, and gathers offers[idx] only for finite cells.  A
+//    +inf weight gives a +inf candidate whatever the index and offer are,
+//    and a row with no finite candidate reports (+inf, -1) either way, so
+//    the skip is exact.  On the ER block 80 % of the cells are +inf
+//    (the never-written tail past a row's fill, and tombstones), so most
+//    idx sectors past a row's head are never read.
+//  - Bytes in flight.  G = min(32, next_pow2(K / V)) lanes per row, so a
+//    warp holds 32 / G rows (4 at K = 32), and kSteps row groups per
+//    thread: every weight load of a thread is issued before any dependent
+//    load, then its index loads, then its gathers.  Rows wider than G·V
+//    cells loop inside the warp.
+//  - One 64-bit min.  Each candidate is packed with its index as
+//    minkey::pack(value, idx); values are >= 0 or +inf and ids lie in
+//    [0, N), so the unsigned order of the key is the repository's tie
+//    rule.  A lane takes the min of its cells' keys and a segmented
+//    shuffle of width G reduces each row.  The key starts at
+//    minkey::kNoCandidate = (+inf, INT_MAX); a row whose key decodes to
+//    +inf reports arg = -1.  Rows past R carry that key through the
+//    shuffles, so every thread reaches them.
+//  - The add is __fadd_rn (round-to-nearest, never contracted), so values
+//    are bit-identical to the plain version's f32 add.
+// The TPU kernel's (256, K) row blocks and its whole-vector VMEM copy of
+// the offers are not carried over: L2 plays the VMEM role here.
 //
-// The TPU kernel's (256, K) row blocks and its whole-vector VMEM copy of the
-// offers are not carried over: L2 plays the VMEM role here.
-//
-// C interface: ellpack_relax_launch(...) enqueues one launch on `stream`
-// and returns cudaGetLastError() (0 = launched).
+// C interface: ellpack_relax_launch(...) picks the variant from the
+// pointers and k (relax.variant mirrors the rule), enqueues one launch on
+// `stream` and returns cudaGetLastError() (0 = launched).
 
 #include <cuda_runtime.h>
 
-#include <climits>
+#include <cstdint>
+
+#include "minkey.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSteps = 2;   // row groups per thread, loads issued together
 
-__device__ __forceinline__ void take_min(float& v, int& id, float ov, int oid) {
-  if (ov < v || (ov == v && oid < id)) {
-    v = ov;
-    id = oid;
-  }
+// V consecutive cells at `p` (16-byte aligned when V == 4).
+__device__ __forceinline__ void load_cells(const float* __restrict__ p,
+                                           float (&out)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
 }
 
-template <int LANES>
+__device__ __forceinline__ void load_cells(const int* __restrict__ p,
+                                           int (&out)[4]) {
+  const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+}
+
+__device__ __forceinline__ void load_cells(const float* __restrict__ p,
+                                           float (&out)[1]) {
+  out[0] = __ldg(p);
+}
+
+__device__ __forceinline__ void load_cells(const int* __restrict__ p,
+                                           int (&out)[1]) {
+  out[0] = __ldg(p);
+}
+
+template <int G, int V>
 __global__ void __launch_bounds__(kThreads)
 ellpack_relax_kernel(const float* __restrict__ offers,
                      const int* __restrict__ idx,
                      const float* __restrict__ w, float* __restrict__ best,
                      int* __restrict__ arg, long long rows, int k) {
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / LANES;
-  const int lane = threadIdx.x % LANES;
-  float v = __int_as_float(0x7f800000);  // +inf
-  int id = INT_MAX;
-  if (row < rows) {
-    const long long base = row * k;
-    for (int j = lane; j < k; j += LANES) {
-      const int nb = __ldg(idx + base + j);
-      take_min(v, id, __fadd_rn(__ldg(offers + nb), __ldg(w + base + j)), nb);
-    }
-  }
-  // every thread of the warp reaches the shuffles (rows past the end carry
-  // +inf), so the full mask is exact
+  constexpr int kRowsPerStep = kThreads / G;
+  const int lane = threadIdx.x % G;
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * (kRowsPerStep * kSteps) +
+      threadIdx.x / G;
+  const int units = k / V;   // V-cell units per row
+  unsigned long long key[kSteps];
 #pragma unroll
-  for (int off = LANES / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off, LANES);
-    const int oid = __shfl_xor_sync(0xffffffffu, id, off, LANES);
-    take_min(v, id, ov, oid);
+  for (int s = 0; s < kSteps; ++s) key[s] = minkey::kNoCandidate;
+  // one pass unless a row holds more than G units; `units` is the same for
+  // the whole block, so every thread runs every pass
+  for (int u0 = 0; u0 < units; u0 += G) {
+    const int u = u0 + lane;
+    float cw[kSteps][V];
+    int ci[kSteps][V];
+    bool live[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const long long row = row0 + s * kRowsPerStep;
+      if (row < rows && u < units) {
+        load_cells(w + row * k + static_cast<long long>(u) * V, cw[s]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < V; ++c) cw[s][c] = minkey::inf();
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      live[s] = false;
+#pragma unroll
+      for (int c = 0; c < V; ++c) live[s] |= cw[s][c] < minkey::inf();
+      if (live[s])
+        load_cells(idx + (row0 + s * kRowsPerStep) * k +
+                       static_cast<long long>(u) * V,
+                   ci[s]);
+    }
+    // a finite weight implies live[s], so its index was loaded
+    float co[kSteps][V];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        co[s][c] = cw[s][c] < minkey::inf() ? __ldg(offers + ci[s][c])
+                                            : minkey::inf();
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        if (cw[s][c] < minkey::inf())
+          key[s] = min(key[s],
+                       minkey::pack(__fadd_rn(co[s][c], cw[s][c]), ci[s][c]));
   }
-  if (row < rows && lane == 0) {
-    best[row] = v;
-    arg[row] = isfinite(v) ? id : -1;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      key[s] = min(key[s], __shfl_xor_sync(0xffffffffu, key[s], off, G));
+    const long long row = row0 + s * kRowsPerStep;
+    if (row < rows && lane == 0) {
+      const float v = minkey::value(key[s]);
+      best[row] = v;
+      arg[row] = v < minkey::inf() ? minkey::id(key[s]) : -1;
+    }
   }
 }
 
-template <int LANES>
+template <int G, int V>
 cudaError_t launch(const float* offers, const int* idx, const float* w,
                    float* best, int* arg, long long rows, int k,
                    cudaStream_t stream) {
-  constexpr long long rows_per_block = kThreads / LANES;
+  constexpr long long rows_per_block = kThreads / G * kSteps;
   const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  ellpack_relax_kernel<LANES><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                stream>>>(offers, idx, w, best, arg, rows, k);
+  ellpack_relax_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               stream>>>(offers, idx, w, best, arg, rows, k);
   return cudaGetLastError();
+}
+
+// G = min(32, next_pow2(units)) lanes per row.
+template <int V>
+cudaError_t dispatch(const float* offers, const int* idx, const float* w,
+                     float* best, int* arg, long long rows, int k,
+                     cudaStream_t s) {
+  const int units = k / V;
+  if (units <= 1) return launch<1, V>(offers, idx, w, best, arg, rows, k, s);
+  if (units <= 2) return launch<2, V>(offers, idx, w, best, arg, rows, k, s);
+  if (units <= 4) return launch<4, V>(offers, idx, w, best, arg, rows, k, s);
+  if (units <= 8) return launch<8, V>(offers, idx, w, best, arg, rows, k, s);
+  if (units <= 16)
+    return launch<16, V>(offers, idx, w, best, arg, rows, k, s);
+  return launch<32, V>(offers, idx, w, best, arg, rows, k, s);
 }
 
 }  // namespace
@@ -94,18 +187,10 @@ extern "C" int ellpack_relax_launch(const float* offers, const int* idx,
                                     long long rows, int k, void* stream) {
   if (rows <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (k <= 1)
-    err = launch<1>(offers, idx, w, best, arg, rows, k, s);
-  else if (k <= 2)
-    err = launch<2>(offers, idx, w, best, arg, rows, k, s);
-  else if (k <= 4)
-    err = launch<4>(offers, idx, w, best, arg, rows, k, s);
-  else if (k <= 8)
-    err = launch<8>(offers, idx, w, best, arg, rows, k, s);
-  else if (k <= 16)
-    err = launch<16>(offers, idx, w, best, arg, rows, k, s);
-  else
-    err = launch<32>(offers, idx, w, best, arg, rows, k, s);
-  return static_cast<int>(err);
+  const bool vector =
+      k % 4 == 0 && ((reinterpret_cast<std::uintptr_t>(idx) |
+                      reinterpret_cast<std::uintptr_t>(w)) & 15u) == 0;
+  return static_cast<int>(
+      vector ? dispatch<4>(offers, idx, w, best, arg, rows, k, s)
+             : dispatch<1>(offers, idx, w, best, arg, rows, k, s));
 }

@@ -11,26 +11,43 @@
 //              slot gives a finite candidate
 //
 // Bound: device-memory bandwidth.  Each input read once and each output
-// written once is 17E (src_dist, src_ids, nbr, w: 4 B each; mask 1 B) +
-// 8R (best, arg) bytes.  On the sparse path E is the capacity-ladder rung's
-// edge + overflow budget, R the vertex count; the arithmetic is negligible.
+// written once is E mask bytes, 16 bytes per masked-in slot (src_dist,
+// src_ids, nbr, w) and 8R (best, arg): gather.wave_bytes.  On the sparse
+// path E is the capacity-ladder rung's edge + overflow budget (16,384 at
+// the low rung) and R the vertex count (2^20), so the 8R bytes of the
+// outputs are almost all of it: 8.41 MB, 0.0025 ms at 3.35 TB/s.  The
+// arithmetic is negligible.
 //
-// Design, two launches on one stream: one thread per edge slot scatters a
-// masked-in finite candidate's (value, source id) key into its row with one
-// 64-bit atomicMin (minkey.cuh), which yields the min value and the smallest
-// source id in one pass, whatever order the atomics land in; then one
-// thread per row splits the key into best and arg.  The TPU kernel needs
-// two scatter passes (values, then ids gated on the row minimum) because
-// the TPU has no atomics; it routes masked slots to an out-of-range row and
-// drops them, which here is a branch.
+// Design: the R-sized work is only the output fill, written once.  Three
+// launches on one stream:
+//  1. best = +inf and arg = INT_MAX over R (16-byte stores), and, in the
+//     same launch, key[nbr[i]] = minkey::kNoCandidate for every masked-in
+//     slot i.  `key` is R words of uninitialised scratch: only the rows a
+//     slot touches are ever read, so no [R] reset is needed.
+//  2. each masked-in slot with a finite candidate scatters its (value,
+//     source id) key into its row with one 64-bit atomicMin (minkey.cuh):
+//     the min value and the smallest source id in one pass, in any order.
+//  3. each masked-in slot reads its row's key and, where it holds a
+//     candidate, writes the row's best and arg; all writers of a row write
+//     the same words.  It is its own launch so that it sees every atomic
+//     of launch 2.
+// kNoCandidate = pack(+inf, INT_MAX) is greater than every finite key and
+// decodes to the contract's (+inf, INT_MAX), so no row needs a "was it
+// hit" branch.  The TPU kernel needs two scatter passes (values, then ids
+// gated on the row minimum) because the TPU has no atomics; it routes
+// masked slots to an out-of-range row and drops them, which here is a
+// branch.  The wrapper makes no host sync, so a call can be captured in a
+// CUDA graph.
 //
-// C interface: gathered_rows_relax_launch(...) enqueues the key reset and
-// both launches on `stream` and returns the first CUDA error (0 = launched).
-// `key` is caller-allocated scratch of `rows` u64 words.
+// C interface: gathered_rows_relax_launch(...) enqueues the three launches
+// on `stream` and returns the first CUDA error (0 = launched).  `key` is
+// caller-allocated scratch of `rows` u64 words; `best` and `arg` must be
+// 16-byte aligned.
 
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 #include "minkey.cuh"
 
@@ -39,11 +56,32 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-edge_scatter_kernel(const float* __restrict__ src_dist,
-                    const int* __restrict__ src_ids,
-                    const int* __restrict__ nbr, const float* __restrict__ w,
-                    const unsigned char* __restrict__ mask,
-                    unsigned long long* __restrict__ key, long long e) {
+k3_fill(const int* __restrict__ nbr, const unsigned char* __restrict__ mask,
+        unsigned long long* __restrict__ key, float* __restrict__ best,
+        int* __restrict__ arg, long long e, long long rows) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const long long r = 4 * i;   // this thread's four output rows
+  if (r + 4 <= rows) {
+    reinterpret_cast<float4*>(best)[i] =
+        make_float4(minkey::inf(), minkey::inf(), minkey::inf(),
+                    minkey::inf());
+    reinterpret_cast<int4*>(arg)[i] =
+        make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
+  } else {
+    for (long long j = r; j < r + 4 && j < rows; ++j) {
+      best[j] = minkey::inf();
+      arg[j] = INT_MAX;
+    }
+  }
+  if (i < e && __ldg(mask + i)) key[__ldg(nbr + i)] = minkey::kNoCandidate;
+}
+
+__global__ void __launch_bounds__(kThreads)
+k3_scatter(const float* __restrict__ src_dist,
+           const int* __restrict__ src_ids, const int* __restrict__ nbr,
+           const float* __restrict__ w, const unsigned char* __restrict__ mask,
+           unsigned long long* __restrict__ key, long long e) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   if (i >= e || !__ldg(mask + i)) return;
@@ -53,16 +91,22 @@ edge_scatter_kernel(const float* __restrict__ src_dist,
 }
 
 __global__ void __launch_bounds__(kThreads)
-split_keys_kernel(const unsigned long long* __restrict__ key,
-                  float* __restrict__ best, int* __restrict__ arg,
-                  long long rows) {
-  const long long r = static_cast<long long>(blockIdx.x) * kThreads +
+k3_write(const int* __restrict__ nbr, const unsigned char* __restrict__ mask,
+         const unsigned long long* __restrict__ key, float* __restrict__ best,
+         int* __restrict__ arg, long long e) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (r >= rows) return;
-  const unsigned long long kv = key[r];
-  const bool hit = kv != minkey::kEmpty;
-  best[r] = hit ? minkey::value(kv) : minkey::inf();
-  arg[r] = hit ? minkey::id(kv) : INT_MAX;
+  if (i >= e || !__ldg(mask + i)) return;
+  const int r = __ldg(nbr + i);
+  const unsigned long long kv = key[r];   // written by launches 1 and 2
+  if (kv != minkey::kNoCandidate) {
+    best[r] = minkey::value(kv);
+    arg[r] = minkey::id(kv);
+  }
+}
+
+unsigned grid(long long threads) {
+  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -71,19 +115,22 @@ extern "C" int gathered_rows_relax_launch(
     const float* src_dist, const int* src_ids, const int* nbr, const float* w,
     const unsigned char* mask, unsigned long long* key, float* best, int* arg,
     long long e, long long rows, void* stream) {
-  if (rows <= 0 || e < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the fill's 16-byte stores need 16-byte aligned outputs (the wrapper
+  // allocates them)
+  if (rows <= 0 || e < 0 ||
+      ((reinterpret_cast<std::uintptr_t>(best) |
+        reinterpret_cast<std::uintptr_t>(arg)) & 15u) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(key, 0xff, rows * sizeof(*key), s);
+  const long long fill_threads = (rows + 3) / 4 > e ? (rows + 3) / 4 : e;
+  k3_fill<<<grid(fill_threads), kThreads, 0, s>>>(nbr, mask, key, best, arg,
+                                                  e, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || e == 0) return static_cast<int>(err);
+  k3_scatter<<<grid(e), kThreads, 0, s>>>(src_dist, src_ids, nbr, w, mask,
+                                          key, e);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (e > 0) {
-    const long long blocks = (e + kThreads - 1) / kThreads;
-    edge_scatter_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        src_dist, src_ids, nbr, w, mask, key, e);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long blocks = (rows + kThreads - 1) / kThreads;
-  split_keys_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      key, best, arg, rows);
+  k3_write<<<grid(e), kThreads, 0, s>>>(nbr, mask, key, best, arg, e);
   return static_cast<int>(cudaGetLastError());
 }

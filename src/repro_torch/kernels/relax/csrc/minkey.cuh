@@ -1,5 +1,6 @@
-// minkey.cuh — the (value, source id) min key shared by kernels K2
-// (fused_sliced_relax.cu) and K3 (gathered_rows_relax.cu).
+// minkey.cuh — the (value, source id) min key shared by kernels K1
+// (ellpack_relax.cu), K2 (fused_sliced_relax.cu) and K3
+// (gathered_rows_relax.cu).
 //
 // Every relaxation candidate is dist + w with dist >= 0 or +inf and w > 0 or
 // +inf, so it is a non-negative float or +inf, and the IEEE bit patterns of
@@ -12,7 +13,9 @@
 // scatter-min over rows is one atomicMin per candidate, in any order, with a
 // result independent of that order.  Source ids are vertex ids in
 // [0, 2^31), so their unsigned order is their signed order.  A row whose key
-// stays kEmpty received no finite candidate.
+// stays kEmpty (K2's reset value, all ones) received no finite candidate;
+// kNoCandidate = pack(+inf, INT_MAX) is greater than the key of every
+// finite candidate as well, and decodes to (+inf, INT_MAX) itself.
 
 #pragma once
 
@@ -23,6 +26,8 @@
 namespace minkey {
 
 constexpr unsigned long long kEmpty = ~0ull;
+constexpr unsigned long long kNoCandidate =
+    (0x7f800000ull << 32) | 0x7fffffffull;
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 

@@ -11,6 +11,7 @@ masked-in slots scatter-min'd into their ``nbr`` rows, ``arg`` the smallest
 the CPU take that plain version; tensors on a CUDA device launch the kernel
 or raise — there is no fallback.  ``gathered_rows_relax.launches`` counts
 kernel launches (a plain integer; callers reset it to 0 to count one run).
+``wave_bytes`` is the bytes one call must move, its bound.
 """
 from __future__ import annotations
 
@@ -25,7 +26,17 @@ from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "gathered_rows_relax.cu"
 
-__all__ = ["gathered_rows_relax", "gathered_rows_relax_ref", "launcher"]
+__all__ = ["gathered_rows_relax", "gathered_rows_relax_ref", "launcher",
+           "wave_bytes"]
+
+
+def wave_bytes(edges: int, masked_in: int, rows: int) -> int:
+    """Bytes one K3 call must move, each input read once and each output
+    written once, counted on the call's own data: one mask byte per slot
+    (E), src_dist, src_ids, nbr and w of each masked-in slot (16 bytes
+    each; a masked-out slot is dropped whatever they say), best + arg
+    (8R)."""
+    return edges + 16 * masked_in + 8 * rows
 
 
 @functools.cache

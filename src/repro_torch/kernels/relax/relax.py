@@ -7,6 +7,9 @@ computes exactly ``ellpack_relax_ref`` (ref.py).  Tensors on the CPU take
 that plain version; tensors on a CUDA device launch the kernel or raise —
 there is no fallback.  ``ellpack_relax.launches`` counts kernel launches
 (a plain integer; callers reset it to 0 to count one run).
+
+The kernel has two variants, chosen by its C launcher: ``variant`` gives
+the rule.  ``wave_bytes`` is the bytes one call must move, its bound.
 """
 from __future__ import annotations
 
@@ -20,6 +23,25 @@ from repro_torch.kernels import build
 from repro_torch.kernels.relax.ref import ellpack_relax_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "ellpack_relax.cu"
+
+
+def variant(nbr_idx: torch.Tensor, nbr_w: torch.Tensor) -> str:
+    """The kernel variant the C launcher picks for an ELL block: "vector"
+    (a lane loads 4 cells as one float4 of weights and one int4 of
+    indices) where K % 4 == 0 and both blocks start on a 16-byte boundary,
+    else "scalar" (one cell a lane; e.g. a view at an odd cell offset, as
+    ``sliced_gather_min`` passes one run of slices)."""
+    aligned = (nbr_idx.data_ptr() | nbr_w.data_ptr()) % 16 == 0
+    return "vector" if nbr_w.shape[1] % 4 == 0 and aligned else "scalar"
+
+
+def wave_bytes(num_offers: int, rows: int, k: int, live_cells: int) -> int:
+    """Bytes one K1 call must move, each input read once and each output
+    written once, counted on the block's own data: the offers vector
+    (4N), every weight (4RK), the index of each finite-weight cell
+    (4 live; a +inf weight makes its candidate +inf whatever the index
+    says), best + arg (8R)."""
+    return 4 * num_offers + 4 * rows * k + 4 * live_cells + 8 * rows
 
 
 @functools.cache

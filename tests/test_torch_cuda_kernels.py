@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: kernels K1 (``ellpack_relax``), K2
+"""The port's CUDA kernels on the card: kernels K1 (``ellpack_relax``, both
+variants), K2
 (``fused_sliced_relax``), K3 (``gathered_rows_relax``), K4 (``spmm_ell``)
 and K5 (``embedding_bag``) against their plain torch versions, and engines
 on the kernels against the same engines on the plain versions (dense ELL
@@ -31,7 +32,7 @@ from repro_torch.kernels.relax.gather import gathered_rows_relax
 from repro_torch.kernels.relax.ref import (ellpack_relax_ref,
                                            fused_sliced_relax_ref,
                                            gathered_rows_relax_ref)
-from repro_torch.kernels.relax.relax import ellpack_relax
+from repro_torch.kernels.relax.relax import ellpack_relax, variant
 from repro_torch.kernels.spmm.ops import neighbor_reduce
 from repro_torch.kernels.spmm.ref import spmm_ell_ref
 from repro_torch.kernels.spmm.spmm import spmm_ell
@@ -48,7 +49,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(seed, n, rows, k, ties, device):
+def _case(seed, n, rows, k, ties, device, tail=False):
+    """offers with +inf entries and an ELL block whose row 0 is all
+    tombstones; the other +inf cells are scattered, or with ``tail`` laid
+    out as the ELL planner lays them out: a live head of fill[r] cells
+    with tombstones among them, then never-written cells (idx 0, w +inf)
+    to the row's end."""
     rng = np.random.default_rng(seed)
     if ties:
         offers = rng.integers(0, 4, n).astype(np.float32)
@@ -58,9 +64,23 @@ def _case(seed, n, rows, k, ties, device):
         w = (0.5 + 1.5 * rng.random((rows, k))).astype(np.float32)
     offers[rng.random(n) < 0.3] = np.inf
     idx = rng.integers(0, n, (rows, k)).astype(np.int32)
-    w[rng.random((rows, k)) < 0.2] = np.inf
+    if tail:
+        past = np.arange(k)[None, :] >= rng.integers(0, k + 1, rows)[:, None]
+        w[past], idx[past] = np.inf, 0
+        w[~past & (rng.random((rows, k)) < 0.15)] = np.inf
+    else:
+        w[rng.random((rows, k)) < 0.2] = np.inf
     w[0] = np.inf                                  # an all-tombstone row
     return [torch.from_numpy(a).to(device) for a in (offers, idx, w)]
+
+
+def _k1_equal(offers, idx, w):
+    before = ellpack_relax.launches
+    best, arg = ellpack_relax(offers, idx, w)
+    torch.cuda.synchronize()
+    assert ellpack_relax.launches == before + 1
+    rb, ra = ellpack_relax_ref(offers, idx, w)
+    assert torch.equal(best, rb) and torch.equal(arg, ra)
 
 
 @pytest.mark.cuda
@@ -74,6 +94,52 @@ def test_k1_matches_plain_version(cuda, n, rows, k, ties):
     assert ellpack_relax.launches == before + 1
     rb, ra = ellpack_relax_ref(offers, idx, w)
     assert torch.equal(best, rb) and torch.equal(arg, ra)
+
+
+# (n offers, rows, K): K = 4, 5, 64, 128 (a warp's 32 lanes of 4 cells),
+# 130 (past a warp: the scalar variant loops); K = 32 at rows that are not
+# a multiple of the 64 rows a block holds (3, 4,097)
+K1_SHAPES = [(700, 130, 4), (300, 256, 5), (900, 99, 64), (900, 70, 128),
+             (900, 33, 130), (300, 3, 32), (5000, 4097, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,rows,k", K1_SHAPES)
+def test_k1_row_tail_padding_and_widths_match_plain_version(cuda, n, rows, k,
+                                                             ties, tail):
+    """Scattered +inf cells and the ELL planner's row-tail padding."""
+    _k1_equal(*_case(n + rows + k, n, rows, k, ties, cuda, tail))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,k,want", [
+    (3, 32, "scalar"), (4, 32, "vector"), (1, 4, "scalar"),
+    (2, 36, "scalar"), (5, 1, "scalar"), (0, 64, "vector")])
+def test_k1_views_at_a_cell_offset(cuda, offset, k, want):
+    """A block viewed at a cell offset of a flat buffer, as
+    ``sliced_gather_min`` passes one run of slices: an offset that is not
+    a multiple of 4 takes the scalar variant."""
+    offers, idx, w = _case(offset + k, 500, 300, k, True, cuda, tail=True)
+    flat_i = idx.new_zeros(offset + idx.numel())
+    flat_w = w.new_zeros(offset + w.numel())
+    flat_i[offset:], flat_w[offset:] = idx.reshape(-1), w.reshape(-1)
+    vi, vw = flat_i[offset:].view(300, k), flat_w[offset:].view(300, k)
+    assert variant(vi, vw) == want
+    _k1_equal(offers, vi, vw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 63, 4097])
+def test_k1_all_inf_rows(cuda, rows):
+    """Every weight +inf, then every offer +inf: best +inf and arg -1 in
+    every row, at row counts that end inside a block."""
+    offers, idx, w = _case(rows, 400, rows, 32, False, cuda, tail=True)
+    _k1_equal(offers, idx, torch.full_like(w, float("inf")))
+    _k1_equal(torch.full_like(offers, float("inf")), idx, w)
+    best, arg = ellpack_relax(offers, idx, torch.full_like(w, float("inf")))
+    assert bool(torch.isinf(best).all()) and bool((arg == -1).all())
 
 
 @pytest.mark.cuda
@@ -184,7 +250,9 @@ def test_k2_refuses_a_table_of_another_layout(cuda):
     assert fused_sliced_relax.launches == before
 
 
-def _k3_case(seed, e, n, ties, mask_frac, device):
+def _k3_case(seed, e, n, ties, mask_frac, device, hub=False, dup=False):
+    """E slots over n rows; ``hub`` sends every slot to one row, ``dup``
+    makes the second half of the slots a copy of the first."""
     rng = np.random.default_rng(seed)
     if ties:
         wd = rng.integers(0, 3, e).astype(np.float32)
@@ -197,7 +265,22 @@ def _k3_case(seed, e, n, ties, mask_frac, device):
     src = rng.integers(0, n, e).astype(np.int32)
     nbr = rng.integers(0, n, e).astype(np.int32)
     mask = rng.random(e) < mask_frac
+    if hub:
+        nbr[:] = n // 2
+    if dup:
+        h = e // 2
+        for a in (wd, src, nbr, w, mask):
+            a[h:2 * h] = a[:h]
     return [torch.from_numpy(a).to(device) for a in (wd, src, nbr, w, mask)]
+
+
+def _k3_equal(args, n):
+    before = gathered_rows_relax.launches
+    best, arg = gathered_rows_relax(*args, num_rows=n)
+    torch.cuda.synchronize()
+    assert gathered_rows_relax.launches == before + 1
+    rb, ra = gathered_rows_relax_ref(*args, num_rows=n)
+    assert torch.equal(best, rb) and torch.equal(arg, ra)
 
 
 @pytest.mark.cuda
@@ -212,6 +295,60 @@ def test_k3_matches_plain_version(cuda, e, n, ties, mask_frac):
     assert gathered_rows_relax.launches == before + 1
     rb, ra = gathered_rows_relax_ref(*args, num_rows=n)
     assert torch.equal(best, rb) and torch.equal(arg, ra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,kw", [
+    (0, 1 << 20, {}), (4096, 5000, dict(mask_frac=0.0)),
+    (4096, 5000, dict(hub=True)), (4096, 5000, dict(hub=True, ties=True)),
+    (3000, 300, dict(dup=True, ties=True)), (300, 1, dict(ties=True)),
+    (16_384, 1 << 20, {})], ids=["E=0", "all masked", "hub row",
+                                 "hub row, ties", "duplicate slots", "R=1",
+                                 "the sparse path's shape"])
+def test_k3_edge_cases(cuda, e, n, kw):
+    """E = 0, every slot masked out, one hub row hit by every slot,
+    duplicate (src, nbr, w) slots, R = 1, and E = 16,384 over 2^20 rows;
+    each twice in a row, so a key left by the first call would show in the
+    second."""
+    kw = {"ties": False, "mask_frac": 0.8, **kw}
+    ties, mask_frac = kw.pop("ties"), kw.pop("mask_frac")
+    args = _k3_case(e + n, e, n, ties, mask_frac, cuda, **kw)
+    _k3_equal(args, n)
+    _k3_equal(args, n)
+
+
+@pytest.mark.cuda
+def test_k3_calls_do_not_leak_into_later_calls(cuda):
+    """Two inputs over the same rows, back to back and then in the other
+    order: each result equals the plain version of its own inputs."""
+    a = _k3_case(1, 5000, 700, True, 0.9, cuda)
+    b = _k3_case(2, 800, 700, True, 0.5, cuda)
+    for args in (a, b, a, b, b, a):
+        _k3_equal(args, 700)
+
+
+@pytest.mark.cuda
+def test_k3_in_a_cuda_graph(cuda):
+    """A K3 call captured in a CUDA graph and replayed, then replayed again
+    after the inputs were overwritten in place: each replay equals the
+    plain version of the inputs of the moment."""
+    n = 5000
+    args = _k3_case(3, 4096, n, True, 0.8, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gathered_rows_relax(*args, num_rows=n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        best, arg = gathered_rows_relax(*args, num_rows=n)
+    for seed in (4, 5):
+        for t, new in zip(args, _k3_case(seed, 4096, n, True, 0.8, cuda)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        rb, ra = gathered_rows_relax_ref(*args, num_rows=n)
+        assert torch.equal(best, rb) and torch.equal(arg, ra)
 
 
 @pytest.mark.cuda
