@@ -25,7 +25,9 @@ Phases (any failure raises and exits non-zero):
      indices, ties and NaN for max, live indices past either end, every
      agg, f32 and bf16; K5: all-padded bags, L = 1, L > 32, L = 37, B = 1,
      padding inside and after a bag, DIN's serve_p99 widths, repeated
-     indices, a live index past the end, f32 and bf16);
+     indices, a live index past the end, f32 and bf16); then K1 (both
+     variants, views at a cell offset) and K2 lane forms at S = 1, 4, 8
+     against the lane plain version and S single-lane kernel calls;
   3. the dense-ELL path: ``make_engine(relax_backend="ellpack",
      batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
      at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
@@ -69,20 +71,37 @@ Phases (any failure raises and exits non-zero):
      for sum and mean; never called by the port): back-to-back CUDA
      events, device time per call (a CUDA graph of 20 calls replayed, every
      kernel of the call) and host time per call (the submission alone);
-  8. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
-     ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``), and as the
-     last line ``{"ok": true, "device": {...}}``.
+  8. the bucketed schedule: phases 3's and 4's 2^20 streams again under
+     ``wave_schedule="buckets"`` (bucket_width 1.0, the same kernels by
+     default), ``dist`` bit-identical to the rounds run at every query,
+     Dijkstra on the final snapshot; waves, launches, events/s;
+  9. batched lanes: the same two streams with ``sources=`` the 4 vertices
+     of highest in-degree (K1's and K2's lane forms, counted apart), lane
+     0 equal to phases 3's / 4's run at every query, every lane through
+     Dijkstra at the end; S x events / wall; each lane form timed at its
+     path's final shape beside one lane alone and its bound;
+  10. at 2^16 (the ER recipe's first quarter of events): 4 lanes on
+     segment, ellpack, sliced unfused, auto and the sparse frontier, under
+     rounds and buckets, each lane equal to a single-source engine at
+     every query; ``sparse_drain`` on K3 against the plain version;
+  11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
+     ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
+     with a ``lanes`` record of their lane forms), and as the last line
+     ``{"ok": true, "device": {...}}``.  Phases run in the order 1-6,
+     8-10, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -91,6 +110,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 7
 EDGE_FACTOR = 8          # examples/streaming_sssp.py's RMAT edge factor
+LANES = 4                # sources of the batched legs (S)
+INF = float("inf")
 WINDOW_FRAC, DELTA = 0.3, 0.3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -110,7 +131,10 @@ def card_line() -> str:
 def stream(log2_n: int, graph: str):
     """The recipe at 2^log2_n vertices: an ER ("er") or RMAT ("rmat")
     graph with edge factor 8 and seed 7, sliding window 0.3·E with delta
-    0.3, a QUERY every window/10; source = the top in-degree vertex."""
+    0.3, a QUERY every window/10.  Returns (n, edges, sources, log):
+    ``sources`` are the LANES vertices of highest in-degree (the reference
+    bench's recipe for batched lanes, benchmarks/bench_sssp.py:656); the
+    single-source paths serve the first."""
     from repro_torch.core import events as ev
     from repro_torch.graphs import generators, window as win
     n = 1 << log2_n
@@ -123,8 +147,9 @@ def stream(log2_n: int, graph: str):
     log = win.sliding_window_stream(src, dst, w, window=window, delta=DELTA,
                                     seed=0)
     log = ev.interleave_queries(log, window // 10)
-    source = int(generators.top_in_degree_sources(n, dst)[0])
-    return n, len(src), source, log
+    sources = [int(v) for v in
+               generators.top_in_degree_sources(n, dst, LANES)]
+    return n, len(src), sources, log
 
 
 def engine(n: int, e: int, source: int, **knobs):
@@ -138,14 +163,17 @@ def topo_counts(log) -> tuple[int, int]:
     return int((log.kind != 2).sum()), int((log.kind == 1).sum())
 
 
-def run_path(torch, eng, log, counters):
+def run_path(torch, eng, log, counters, marks=None):
     """Drive ``eng`` over ``log`` with the kernels' launch counts set to 0
     just before and read just after; returns (wall s, query results,
-    launches per counter)."""
+    launches per counter).  ``marks``, where given, receives (seconds
+    since the start, waves so far) at every query."""
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    results = eng.ingest_log(log)
+    on_query = None if marks is None else (
+        lambda _: marks.append((time.perf_counter() - t0, eng.n_rounds)))
+    results = eng.ingest_log(log, on_query=on_query)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return wall, results, [c.launches for c in counters]
@@ -384,14 +412,16 @@ def k1_view(torch, args, offset: int):
             flat_w[offset:].view(rows, k)]
 
 
-def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
+def k2_case(torch, seed, *, widths, slice_rows, n, ocap, ties=False,
             active_frac=1.0, dead_frac=0.0, tombstones=False):
     """A random flat sliced layout + overflow lane on the card (n <= rows);
     ``ties`` draws integer offers and weights, ``dead_frac`` of the rows get
     no live cell, ``tombstones`` puts +inf between every row's live cells
-    and makes the second slice all padding."""
+    and makes the second slice all padding.  Returns ((dist, active),
+    layout): the layout object K2's wrapper reads (the fields a
+    ``SlicedEllState`` holds for it) with its chunk table."""
     from repro_torch.graphs import csr
-    from repro_torch.kernels.relax.fused import block_table
+    from repro_torch.kernels.relax.fused import ChunkTable
     rng = np.random.default_rng(seed)
     L = slice_rows * sum(widths)
     wpool = np.asarray([0.5, 1.0] if ties else rng.uniform(0.1, 2.0, 8),
@@ -417,18 +447,27 @@ def k2_case(torch, seed, widths, slice_rows, n, ocap, *, ties=False,
         dist = np.floor(dist)
     active = rng.random(n) < active_frac
     t = [torch.from_numpy(a).cuda() for a in
-         (dist, active, flat_idx, flat_w, osrc, odst, ow,
-          block_table(widths, slice_rows))]
-    return t[:7], dict(widths=tuple(widths), slice_rows=slice_rows,
-                       blocks=t[7])
+         (dist, active, flat_idx, flat_w, osrc, odst, ow)]
+    widths = tuple(widths)
+    return t[:2], SimpleNamespace(
+        flat_idx=t[2], flat_w=t[3], osrc=t[4], odst=t[5], ow=t[6],
+        widths=widths, slice_rows=slice_rows,
+        table=ChunkTable.build(widths, slice_rows, t[3].device))
 
 
-def k2_check(torch, args, kw) -> float:
-    from repro_torch.kernels.relax.fused import fused_sliced_relax
+def k2_plain(dist, active, lay):
+    """K2's plain version on a layout object (one lane or S)."""
     from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
-    plain = fused_sliced_relax_ref(*args, widths=kw["widths"],
-                                   slice_rows=kw["slice_rows"])
-    return compare(torch, "K2", fused_sliced_relax(*args, **kw), plain)
+    return fused_sliced_relax_ref(dist, active, lay.flat_idx, lay.flat_w,
+                                  lay.osrc, lay.odst, lay.ow,
+                                  widths=lay.widths,
+                                  slice_rows=lay.slice_rows)
+
+
+def k2_check(torch, dist, active, lay) -> float:
+    from repro_torch.kernels.relax.fused import fused_sliced_relax
+    return compare(torch, "K2", fused_sliced_relax(dist, active, lay),
+                   k2_plain(dist, active, lay))
 
 
 def k3_case(torch, seed, e, n, *, ties=False, mask_frac=0.7, hub=False,
@@ -540,6 +579,79 @@ def k5_case(torch, seed, v, b, l, d, dtype, tail=False):
         idx[2] = 5
     return (torch.from_numpy(table).to("cuda", dtype),
             torch.from_numpy(idx).cuda())
+
+
+def lanes_of(torch, base, lanes: int, seed: int):
+    """``lanes`` lanes over ``base`` (an (N,) vector): lane 0 is ``base``,
+    lane 1 all +inf, the others ``base`` with 30 % of the entries set to
+    +inf and the rest shuffled."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = base.unsqueeze(0).repeat(lanes, 1)
+    for t in range(2, lanes):
+        perm = torch.randperm(base.numel(), generator=g, device="cuda")
+        out[t] = base[perm]
+        out[t][torch.rand(base.numel(), generator=g, device="cuda") < 0.3] \
+            = INF
+    if lanes > 1:
+        out[1] = INF
+    return out
+
+
+def lanes_check(torch, name, fn, lane_args, one_args, plain) -> float:
+    """A lane-form call against its lane plain version and, lane by lane,
+    against single-lane kernel calls; ``one_args(t)`` gives lane t's
+    single-lane arguments.  Returns the max |best difference| (0)."""
+    got = fn(*lane_args)
+    err = compare(torch, f"{name} lanes", got, plain)
+    for t in range(got[0].shape[0]):
+        compare(torch, f"{name} lane {t}", (got[0][t], got[1][t]),
+                fn(*one_args(t)))
+    return err
+
+
+def lane_edge_cases(torch, k2_cases) -> None:
+    """Phase 2 for the lane forms: K1 (both variants; views at a cell
+    offset) and K2 at S = 1, 4, 8 against the lane plain version and S
+    single-lane kernel calls, bit for bit, on phase 2's edge cases."""
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.kernels.relax.ref import ellpack_relax_ref
+    cases = [(50, 8, 1), (700, 130, 4), (300, 256, 5), (5000, 4097, 32),
+             (70000, 65536, 33), (900, 70, 128), (900, 33, 130),
+             (1 << 20, 1 << 20, 32)]
+    taken, n1, n2 = set(), 0, 0
+    for lanes in (1, 4, 8):
+        blocks = [k1_case(torch, i, n, r, k, True, True)
+                  for i, (n, r, k) in enumerate(cases)]
+        blocks += [k1_view(torch, k1_case(torch, 50 + i, 500, 300, k, True,
+                                          True), off)
+                   for i, (off, k) in enumerate([(3, 32), (1, 4), (2, 36)])]
+        for offers, idx, w in blocks:
+            if lanes == 8 and idx.shape[0] == 1 << 20:
+                continue       # the plain version's (8, R, K) candidates
+            taken.add(k1.variant(idx, w))
+            lo = lanes_of(torch, offers, lanes, n1)
+            lanes_check(torch, "K1", k1.ellpack_relax, (lo, idx, w),
+                        lambda t: (lo[t].contiguous(), idx, w),
+                        ellpack_relax_ref(lo, idx, w))
+            n1 += 1
+        for i, (_, c) in enumerate(k2_cases):
+            (dist, active), lay = k2_case(torch, 100 + i, **c)
+            d = lanes_of(torch, dist, lanes, n2)
+            a = torch.rand(d.shape, device="cuda") < 0.7
+            a[0] = active
+            if lanes > 2:
+                a[2] = False          # a lane with no active source
+            lanes_check(torch, "K2", k2.fused_sliced_relax, (d, a, lay),
+                        lambda t: (d[t].contiguous(), a[t].contiguous(), lay),
+                        k2_plain(d, a, lay))
+            n2 += 1
+    assert taken == {"vector", "scalar"}, taken
+    print(f"[2] K1 and K2 lane forms at S = 1, 4, 8: bit-identical to the "
+          f"lane plain version and to S single-lane kernel calls on {n1} "
+          f"K1 cases (both variants, views at a cell offset, an all-+inf "
+          f"lane) and {n2} K2 cases (an all-+inf lane, a lane with no "
+          f"active source)")
 
 
 def gather_edge_cases(torch) -> None:
@@ -677,21 +789,22 @@ def kernel_edge_cases(torch) -> None:
               ties=True, active_frac=0.7)),
     ]
     for i, (_, c) in enumerate(k2_cases):
-        c = dict(c)
-        args, kw = k2_case(torch, i, c.pop("widths"), c.pop("slice_rows"),
-                           c.pop("n"), c.pop("ocap"), **c)
-        k2_check(torch, args, kw)
+        (dist, active), lay = k2_case(torch, i, **c)
+        k2_check(torch, dist, active, lay)
         if i == 0:   # the same layout with a dead and a zero-length lane
-            dead = [*args[:6], torch.full_like(args[6], float("inf"))]
-            k2_check(torch, dead, kw)
+            dead = SimpleNamespace(**{**vars(lay),
+                                      "ow": torch.full_like(lay.ow, INF)})
+            k2_check(torch, dist, active, dead)
             z = torch.zeros(0, dtype=torch.int32, device="cuda")
-            k2_check(torch, [*args[:4], z, z, z.float()], kw)
+            empty = SimpleNamespace(**{**vars(lay), "osrc": z, "odst": z,
+                                       "ow": z.float()})
+            k2_check(torch, dist, active, empty)
         if i == 2:   # all-+inf rows: every offer +inf
-            k2_check(torch, [torch.full_like(args[0], float("inf")),
-                             *args[1:]], kw)
+            k2_check(torch, torch.full_like(dist, INF), active, lay)
     print(f"[2] K2 bit-identical to the plain version on {len(k2_cases) + 3} "
           f"cases ({', '.join(c[0] for c in k2_cases)}, a dead and a "
           f"zero-length overflow lane, all-+inf offers)")
+    lane_edge_cases(torch, k2_cases)
 
     k3_cases = [(85, 40, {}), (300, 17, dict(ties=True, mask_frac=1.0)),
                 (64, 64, dict(mask_frac=0.0)), (0, 12, {}),
@@ -714,20 +827,27 @@ def kernel_edge_cases(torch) -> None:
 
 
 # ------------------------------------------------------------------ phases --
-def dense_ell_path(torch):
-    """Phase 3: the ER stream on the dense ELL block, every wave on K1."""
+def dense_ell_path(torch, ctx):
+    """Phase 3: the ER stream on the dense ELL block, every wave on K1.
+    Keeps the stream and its query results in ``ctx["er"]`` for the
+    buckets and lanes legs."""
     from repro_torch.core.backends.ellpack import EllPlanner
     from repro_torch.kernels.relax import relax as k1
     from repro_torch.kernels.relax.ref import ellpack_relax_ref
     t0 = time.perf_counter()
-    n, e, source, log = stream(20, "er")
+    n, e, sources, log = stream(20, "er")
+    source = sources[0]
     n_topo, n_dels = topo_counts(log)
     print(f"[3] ER stream: n={n} edges={e} events={len(log)} (topology "
           f"{n_topo}, dels {n_dels}) source={source}; built in "
           f"{time.perf_counter() - t0:.1f} s")
     eng = engine(n, e, source, relax_backend="ellpack")
-    wall, res, (launches,) = run_path(torch, eng, log, [k1.ellpack_relax])
+    marks = []
+    wall, res, (launches,) = run_path(torch, eng, log, [k1.ellpack_relax],
+                                      marks)
     assert launches > 0, "the dense-ELL path never launched K1"
+    ctx["er"] = dict(n=n, e=e, sources=sources, log=log, results=res,
+                     marks=marks)
     ell = eng.backend.state
     print(f"[3] dense-ELL path: {wall:.2f} s, {n_topo / wall:.0f} topology "
           f"events/s, {len(res)} queries, query p50 {p50_ms(res):.3f} ms, "
@@ -781,26 +901,31 @@ def dense_ell_path(torch):
             "variant": kind}
 
 
-def hub_path(torch):
+def hub_path(torch, ctx):
     """Phase 4: the RMAT(20) stream under auto (dense ELL, then sliced),
-    every sliced wave on K2."""
+    every sliced wave on K2.  Keeps the stream and its query results in
+    ``ctx["rmat"]``."""
     from repro_torch.core.backends.sliced import SlicedEllPlanner
     from repro_torch.graphs import csr
     from repro_torch.kernels.relax import fused as k2
     from repro_torch.kernels.relax import relax as k1
-    from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
     t0 = time.perf_counter()
-    n, e, source, log = stream(20, "rmat")
+    n, e, sources, log = stream(20, "rmat")
+    source = sources[0]
     n_topo, n_dels = topo_counts(log)
     print(f"[4] RMAT stream: n={n} edges={e} events={len(log)} (topology "
           f"{n_topo}, dels {n_dels}) source={source}; built in "
           f"{time.perf_counter() - t0:.1f} s")
     knobs = dict(relax_backend="auto")     # K2 by default on the card
     eng = engine(n, e, source, **knobs)
+    marks = []
     wall, res, (l1, l2) = run_path(torch, eng, log,
-                                   [k1.ellpack_relax, k2.fused_sliced_relax])
+                                   [k1.ellpack_relax, k2.fused_sliced_relax],
+                                   marks)
     assert l2 > 0, "the hub path never launched K2"
     assert eng.backend_name == "sliced", "auto did not fall back to sliced"
+    ctx["rmat"] = dict(n=n, e=e, sources=sources, log=log, results=res,
+                       marks=marks)
     pl, st = eng.backend.planner, eng.backend.state
     runs = len(csr.width_runs(pl.widths))
     print(f"[4] hub path (auto -> sliced, K2): {wall:.2f} s, "
@@ -817,14 +942,18 @@ def hub_path(torch):
 
     dist = eng.state.sssp.dist
     active = torch.ones_like(dist, dtype=torch.bool)   # an unmasked pull wave
-    args = (dist, active, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow)
-    kw = dict(widths=tuple(pl.widths), slice_rows=pl.sr, blocks=st.blocks)
-    err = k2_check(torch, args, kw)
-    times = kernel_times(torch, lambda: k2.fused_sliced_relax(*args, **kw),
-                         50)
-    passes = per_launch_ms(torch, lambda: k2.fused_sliced_relax(*args, **kw))
-    plain_ms = cuda_ms(torch, lambda: fused_sliced_relax_ref(
-        *args, widths=kw["widths"], slice_rows=pl.sr), 3)
+    err = k2_check(torch, dist, active, st)
+    run_k2 = lambda: k2.fused_sliced_relax(dist, active, st)   # noqa: E731
+    times = kernel_times(torch, run_k2, 50)
+    passes = per_launch_ms(torch, run_k2)
+    plain_ms = cuda_ms(torch, lambda: k2_plain(dist, active, st), 3)
+    before_us = k2_host_us_before(torch, run_k2, st)
+    print(f"[4] K2 host time per call at the final layout ({len(st.widths)} "
+          f"slices; {card_line()}): {before_us:.1f} us with the parent's "
+          f"per-call layout lookup in front (an lru_cache keyed on the "
+          f"widths tuple, hashed whole at every call; emulated here), "
+          f"{times['host_us']:.1f} us with the table and its sizes taken "
+          f"from the SlicedEllState")
     live_l = int(torch.isfinite(st.flat_w).sum())
     live_c = int(torch.isfinite(st.ow).sum())
     per_row = torch.bincount(st.odst[torch.isfinite(st.ow)].long(),
@@ -845,7 +974,7 @@ def hub_path(torch):
           f"{wall:.2f} s; per "
           f"launch (profiled): "
           + "; ".join(f"{name.split('(')[0]} {t:.4f} ms" for name, t in passes))
-    del eng, dist, active, args, kw, st, q
+    del eng, dist, active, st, q
 
     host_s = control_plane_seconds(
         e, log, SlicedEllPlanner(n),
@@ -871,7 +1000,18 @@ def hub_path(torch):
             "replaces": "src/repro/kernels/relax/fused.py:122",
             "launches": l2, "max_abs_err": err, **times,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "check": "bit-identical"}
+            "library_ms": None, "check": "bit-identical",
+            "host_us_parent_lookup": before_us}
+
+
+def k2_host_us_before(torch, run_k2, st) -> float:
+    """K2's host time per call with the parent's per-call layout lookup in
+    front: ``fused._layout_size`` was an ``lru_cache`` keyed on
+    ``(tuple(widths), slice_rows)``, and CPython hashes a tuple whole at
+    every lookup (the sliced backend made the tuple once per epoch)."""
+    lookup = functools.lru_cache(maxsize=16)(lambda widths, sr: sr)
+    widths = tuple(st.widths)
+    return host_us(torch, lambda: (lookup(widths, st.slice_rows), run_k2()))
 
 
 def hub_cross_check(torch) -> None:
@@ -880,7 +1020,8 @@ def hub_cross_check(torch) -> None:
     from repro_torch.graphs import csr
     from repro_torch.kernels.relax import fused as k2
     from repro_torch.kernels.relax import relax as k1
-    n, e, source, log = stream(16, "rmat")
+    n, e, sources, log = stream(16, "rmat")
+    source = sources[0]
     runs = {}
     for name, knobs in (
             ("auto+K2", dict(relax_backend="auto")),
@@ -1015,7 +1156,8 @@ def sparse_cross_check(torch) -> None:
     """Phase 6b: the 2^16 RMAT sliding-window stream (ADD and DEL epochs)
     sparse on K3 against sparse on the plain version."""
     from repro_torch.kernels.relax import gather as k3
-    n, e, source, log = stream(16, "rmat")
+    n, e, sources, log = stream(16, "rmat")
+    source = sources[0]
     runs = []
     for kernel in (True, False):
         eng = engine(n, e, source, frontier_mode="sparse",
@@ -1028,6 +1170,226 @@ def sparse_cross_check(torch) -> None:
           f"{k_wall:.2f} s) and on the plain version ({p_wall:.2f} s) "
           f"identical at all {len(got)} queries (stats "
           f"{got[-1].epoch_stats})")
+
+
+# ------------------------------ phases 8-10: buckets and batched lanes --
+LEGS = (("er", "ER dense-ELL (K1)", dict(relax_backend="ellpack")),
+        ("rmat", "RMAT(20) auto (K2)", dict(relax_backend="auto")))
+# phases 8 and 9 run each 2^20 stream up to and including its 21st of 41
+# QUERY markers (about half the events), to stay in the time limit
+LEG_QUERIES = 21
+
+
+def leg_stream(c) -> tuple:
+    """The new legs' cut of a phase 3/4 stream: the log up to and including
+    its LEG_QUERIES-th QUERY marker, that run's results up to it, and the
+    rounds run's (wall s, waves) at that marker."""
+    log = c["log"]
+    end = int(np.nonzero(np.asarray(log.kind) == 2)[0][LEG_QUERIES - 1]) + 1
+    return (log[:end], c["results"][:LEG_QUERIES],
+            c["marks"][LEG_QUERIES - 1])
+
+
+def buckets_legs(torch, ctx) -> None:
+    """Phase 8: the 2^20 streams of phases 3 and 4 under
+    ``wave_schedule="buckets"`` (bucket_width 1.0): ER on the dense ELL
+    block (K1 by default), RMAT(20) under auto (K2 by default).  ``dist``
+    equals the rounds run's at every query; the final snapshot passes
+    Dijkstra."""
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import relax as k1
+    for key, label, knobs in LEGS:
+        c = ctx[key]
+        n, source = c["n"], c["sources"][0]
+        log, want, (r_wall, r_waves) = leg_stream(c)
+        n_topo = topo_counts(log)[0]
+        eng = engine(n, c["e"], source, wave_schedule="buckets",
+                     bucket_width=1.0, **knobs)
+        wall, res, (l1, l2) = run_path(
+            torch, eng, log, [k1.ellpack_relax, k2.fused_sliced_relax])
+        assert (l1 if key == "er" else l2) > 0, f"[8] {label}: no launch"
+        assert len(res) == len(want)
+        parents = 0
+        for i, (a, b) in enumerate(zip(res, want)):
+            assert np.array_equal(a.dist, b.dist), \
+                f"[8] {label}: dist differs from the rounds run at query {i}"
+            parents += int(np.array_equal(a.parent, b.parent))
+        q = eng.query()
+        reached = snapshot_check(n, source, *eng.alloc.active_coo(), q.dist,
+                                 q.parent)
+        print(f"[8] {label} under buckets (width 1.0), its first "
+              f"{len(log)} events ({n_topo} topology, {len(res)} queries): "
+              f"{wall:.2f} s, {n_topo / wall:.0f} topology events/s (rounds "
+              f"to the same query: {r_wall:.2f} s, {n_topo / r_wall:.0f}), "
+              f"waves {eng.n_rounds} (rounds {r_waves}), K1 launches {l1}, "
+              f"K2 launches {l2}; dist "
+              f"bit-identical to the rounds run at all {len(res)} queries "
+              f"(parent too at {parents}); final snapshot passes Dijkstra "
+              f"({reached} reached)")
+        del eng, res, q
+
+
+def lane_times(torch, name, fn, lane_args, single_args, plain, nbytes,
+               ops, launches) -> dict:
+    """A lane form at its path's final shape: checked against its lane
+    plain version and S single-lane calls, timed three ways beside the
+    single-lane call's device time, with its bound."""
+    lanes = lane_args[0].shape[0]
+    err = lanes_check(torch, name, fn, lane_args, single_args, plain)
+    times = kernel_times(torch, lambda: fn(*lane_args), 20)
+    one_ms = device_ms(torch, lambda: fn(*single_args(0)))
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"[9] {name} lane form at S={lanes}: {times_text(times)}; one "
+          f"lane alone {one_ms:.4f} ms device (x S = {lanes * one_ms:.4f}); "
+          f"bound {bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at 3.35 TB/s "
+          f"(the layout once, the per-lane vectors S times); lane-form "
+          f"launches on the path {launches}")
+    return {"lanes": lanes, "launches": launches, "max_abs_err": err,
+            **times, "single_lane_device_ms": one_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def lanes_legs(torch, ctx) -> tuple[dict, dict]:
+    """Phase 9: the 2^20 streams of phases 3 and 4 with ``sources=`` the
+    LANES vertices of highest in-degree: ER on the dense ELL block (K1's
+    lane form), RMAT(20) under auto (K2's lane form).  Lane 0 serves phase
+    3's / 4's source and equals that run at every query; every lane passes
+    Dijkstra at the final query.  Returns the ``lanes`` records of K1 and
+    K2 (the lane form timed at its path's final shape)."""
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.kernels.relax.ref import ellpack_relax_ref
+    records = []
+    for (key, label, knobs), kernel in zip(LEGS, (k1.ellpack_relax,
+                                                  k2.fused_sliced_relax)):
+        c = ctx[key]
+        n, sources = c["n"], tuple(c["sources"])
+        log, want, (r_wall, _) = leg_stream(c)
+        n_topo = topo_counts(log)[0]
+        eng = engine(n, c["e"], sources[0], sources=sources, **knobs)
+        for fn in (k1.ellpack_relax, k2.fused_sliced_relax):
+            fn.launches = fn.lane_launches = 0
+        t0 = time.perf_counter()
+        res = eng.ingest_log(log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lane_launches = kernel.lane_launches
+        assert lane_launches > 0 and kernel.launches == lane_launches, \
+            f"[9] {label}: {kernel.launches} launches, {lane_launches} lane"
+        assert len(res) == len(want)
+        for i, (a, b) in enumerate(zip(res, want)):
+            assert np.array_equal(a.dist[0], b.dist) and np.array_equal(
+                a.parent[0], b.parent), \
+                f"[9] {label}: lane 0 differs from the single run at query {i}"
+        q = eng.query()
+        coo = eng.alloc.active_coo()
+        reached = [snapshot_check(n, s, *coo, q.dist[i], q.parent[i])
+                   for i, s in enumerate(sources)]
+        print(f"[9] {label} with {len(sources)} lanes (sources {sources}), "
+              f"its first {len(log)} events ({n_topo} topology): {wall:.2f} "
+              f"s, {len(sources) * n_topo / wall:.0f} source-events/s (S x "
+              f"topology events / wall; one source to the same query: "
+              f"{n_topo / r_wall:.0f} in {r_wall:.2f} s), waves "
+              f"per lane {eng.n_rounds.tolist()}, lane-form launches "
+              f"{lane_launches}; lane 0 bit-identical to the single-source "
+              f"run at all {len(res)} queries; every lane passes Dijkstra "
+              f"(reached {reached})")
+        del res, q
+        dist = eng.state.sssp.dist
+        if key == "er":
+            ell = eng.backend.state
+            idx, w = ell.nbr_idx, ell.nbr_w
+            live = int(torch.isfinite(w).sum())
+            records.append(lane_times(
+                torch, "K1", k1.ellpack_relax, (dist, idx, w),
+                lambda t: (dist[t], idx, w), ellpack_relax_ref(dist, idx, w),
+                k1.wave_bytes(n, idx.shape[0], idx.shape[1], live,
+                              lanes=len(sources)),
+                2 * live * len(sources), lane_launches))
+        else:
+            st = eng.backend.state
+            act = torch.ones_like(dist, dtype=torch.bool)
+            live_l = int(torch.isfinite(st.flat_w).sum())
+            live_c = int(torch.isfinite(st.ow).sum())
+            records.append(lane_times(
+                torch, "K2", k2.fused_sliced_relax, (dist, act, st),
+                lambda t: (dist[t], act[t], st), k2_plain(dist, act, st),
+                k2.wave_bytes(n, st.flat_w.numel(), live_l, st.ow.numel(),
+                              live_c, st.table.rows, lanes=len(sources)),
+                2 * (live_l + live_c) * len(sources), lane_launches))
+        del eng, dist
+    return records[0], records[1]
+
+
+LANE_CHECK_FRACTION = 4   # phase 10 runs the first quarter of the events
+
+
+def lanes_cross_check(torch) -> None:
+    """Phase 10: LANES lanes at 2^16 on the ER recipe (its first quarter of
+    events) on segment, ellpack (K1's lane form), sliced unfused (K1's
+    lane form once per width run), auto (K2's lane form) and the sparse
+    frontier (K3 once per lane), under rounds and buckets: every lane
+    equals a single-source segment engine of its source at every query,
+    its round and message counts too.  Then a bucketed sparse engine's
+    drains (``sparse_drain``) on K3 against the same on the plain
+    version."""
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import gather as k3
+    from repro_torch.kernels.relax import relax as k1
+    t0 = time.perf_counter()
+    n, e, sources, log = stream(16, "er")
+    log = log[:len(log) // LANE_CHECK_FRACTION]
+    kernels = (k1.ellpack_relax, k2.fused_sliced_relax, k3.gathered_rows_relax)
+    engines = (("segment", dict(relax_backend="segment"), None),
+               ("ellpack on K1 lanes", dict(relax_backend="ellpack"), 0),
+               ("sliced on K1 lanes per width run",
+                dict(relax_backend="sliced", ell_use_kernel=True,
+                     sliced_fused=False), 0),
+               ("auto on K2 lanes", dict(relax_backend="auto"), 1),
+               ("sparse on K3 per lane", dict(relax_backend="segment",
+                                              frontier_mode="sparse"), 2))
+    for sched in (dict(), dict(wave_schedule="buckets", bucket_width=1.0)):
+        singles = [engine(n, e, s, **sched).ingest_log(log) for s in sources]
+        counts = []
+        for name, knobs, which in engines:
+            for fn in kernels:
+                fn.launches, fn.lane_launches = 0, 0
+            eng = engine(n, e, sources[0], sources=tuple(sources), **knobs,
+                         **sched)
+            res = eng.ingest_log(log)
+            torch.cuda.synchronize()
+            launched = [fn.lane_launches if i < 2 else fn.launches
+                        for i, fn in enumerate(kernels)]
+            if which is None:
+                assert sum(fn.launches for fn in kernels) == 0, name
+            else:
+                assert launched[which] > 0, f"[10] {name}: {launched}"
+            for i, want in enumerate(singles):
+                for q, (a, b) in enumerate(zip(res, want)):
+                    ok = (np.array_equal(a.dist[i], b.dist)
+                          and np.array_equal(a.parent[i], b.parent)
+                          and a.epoch_stats["rounds"][i]
+                          == b.epoch_stats["rounds"]
+                          and a.epoch_stats["messages"][i]
+                          == b.epoch_stats["messages"])
+                    assert ok, f"[10] {name} {sched}: lane {i} query {q}"
+            counts.append(f"{name} {0 if which is None else launched[which]}")
+        print(f"[10] n={n}, {len(log)} events, {len(sources)} lanes, "
+              f"{sched.get('wave_schedule', 'rounds')}: every lane equals "
+              f"its single-source engine at all {len(singles[0])} queries "
+              f"(counters too) on " + "; ".join(counts) + " launches")
+    runs = []
+    for kernel in (True, False):
+        eng = engine(n, e, sources[0], frontier_mode="sparse",
+                     frontier_kernel=kernel, wave_schedule="buckets",
+                     bucket_width=1.0)
+        runs.append(run_path(torch, eng, log, [k3.gathered_rows_relax]))
+    (_, got, (l3,)), (_, want, (plain,)) = runs
+    assert l3 > 0 and plain == 0, (l3, plain)
+    same_results("sparse_drain K3 vs plain", got, want)
+    print(f"[10] sparse_drain on K3 (launches {l3}) identical to the plain "
+          f"version at all {len(got)} queries; phase 10 in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------ phase 7: the K4 and K5 paths --
@@ -1229,15 +1591,23 @@ def main() -> int:
     kernel_edge_cases(torch)
 
     # ---- 3.-6. the paths, each with its kernels' counts
-    kernels = [dense_ell_path(torch), hub_path(torch)]
+    ctx = {}
+    kernels = [dense_ell_path(torch, ctx), hub_path(torch, ctx)]
     hub_cross_check(torch)
     kernels.append(sparse_path(torch))
     sparse_cross_check(torch)
 
+    # ---- 8.-10. the bucketed schedule and batched lanes
+    buckets_legs(torch, ctx)
+    k1_lanes, k2_lanes = lanes_legs(torch, ctx)
+    kernels[0]["lanes"], kernels[1]["lanes"] = k1_lanes, k2_lanes
+    del ctx
+    lanes_cross_check(torch)
+
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))
 
-    # ---- 8. result lines
+    # ---- 11. result lines
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,13 @@ participation (torch rendering of ``repro.core.backends.base``, single-device
 side).
 
 ``SSSPDelEngine`` holds ONE ``RelaxBackend`` and calls ``apply_adds`` /
-``apply_dels`` / ``relax`` / ``delete`` / ``restore`` — no per-backend
-branching in the ingest path.  The equivalence contract travels with the
-protocol: every backend's wave evaluates the same candidate set (all live
-in-edges of each row, offers masked by the frontier) with the same
-smallest-src-id tie-break, so ``(dist, parent)`` and the round/message
-counters are bit-identical across backends and against the reference.
+``apply_dels`` / ``relax`` / ``delete`` / ``drain`` / ``restore`` (and the
+``*_batched`` forms on a multi-source engine) — no per-backend branching in
+the ingest path.  The equivalence contract travels with the protocol: every
+backend's wave evaluates the same candidate set (all live in-edges of each
+row, offers masked by the frontier) with the same smallest-src-id
+tie-break, so ``(dist, parent)`` and the round/message counters are
+bit-identical across backends and against the reference.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 if TYPE_CHECKING:
+    from repro_torch.core.buckets import PendingState
     from repro_torch.core.delete import DeleteStats
     from repro_torch.core.ingest import PlannedAdds
     from repro_torch.core.relax import RelaxStats
@@ -50,6 +52,7 @@ _ELL_SHARED_KNOBS = ("ell_use_kernel",)
 AUTO_BACKEND = "auto"
 ELL_BLOWUP_RATIO = 16
 
+WAVE_SCHEDULES = ("rounds", "buckets")
 FRONTIER_MODES = ("dense", "sparse", "auto")
 
 # Kernel switches whose default is None here (the kernel iff the device is
@@ -57,27 +60,36 @@ FRONTIER_MODES = ("dense", "sparse", "auto")
 # so every configuration the reference accepts is accepted.
 _OFF_IS_UNSET = ("sliced_fused", "frontier_kernel")
 
-# Reference options that later slices of the port bring over: selecting one
-# raises instead of silently running something else.
-NOT_YET_PORTED = {"wave_schedule": ("buckets",)}
-
 
 def validate_backend_config(cfg: Any) -> None:
-    """Raise ``ValueError`` at construction time for an unknown or not yet
-    ported backend/schedule/frontier mode, or for backend or frontier knobs
-    that do not apply to the selected backend or mode (the reference's
-    rules)."""
-    for knob, later in NOT_YET_PORTED.items():
-        val = getattr(cfg, knob)
-        if val in later:
-            raise ValueError(f"{knob}={val!r} is not yet ported to "
-                             f"repro_torch")
+    """Raise ``ValueError`` at construction time for an unknown
+    backend/schedule/frontier mode, a bad ``bucket_width``, or backend,
+    schedule or frontier knobs that do not apply to the selected backend,
+    schedule or mode (the reference's rules and messages)."""
     name = cfg.relax_backend
     if name not in BACKENDS and name != AUTO_BACKEND:
         raise ValueError(f"unknown relax_backend {name!r}; valid backends: "
                          f"{sorted(BACKENDS) + [AUTO_BACKEND]}")
-    if cfg.wave_schedule != "rounds":
-        raise ValueError(f"unknown wave_schedule {cfg.wave_schedule!r}")
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    schedule = cfg.wave_schedule
+    if schedule not in WAVE_SCHEDULES:
+        raise ValueError(
+            f"unknown wave_schedule {schedule!r}; valid schedules: "
+            f"{list(WAVE_SCHEDULES)}")
+    width = cfg.bucket_width
+    # the string check must precede the numeric compare (a str/float ``>``
+    # would raise the wrong exception type)
+    if isinstance(width, str):
+        if width != "auto":
+            raise ValueError(
+                f"bucket_width must be > 0 or 'auto'; got {width!r}")
+    elif not width > 0:   # also rejects NaN
+        raise ValueError(
+            f"bucket_width must be > 0 (inf = one bucket); got {width!r}")
+    if schedule == "rounds" and width != defaults["bucket_width"]:
+        raise ValueError(
+            f"bucket_width={width!r} configures the buckets schedule; "
+            f"remove it or select wave_schedule='buckets'")
     mode = cfg.frontier_mode
     if mode not in FRONTIER_MODES:
         raise ValueError(f"unknown frontier_mode {mode!r}; valid modes: "
@@ -85,7 +97,6 @@ def validate_backend_config(cfg: Any) -> None:
     if cfg.frontier_cap < 0:
         raise ValueError(f"frontier_cap must be >= 0 (0 = derive); got "
                          f"{cfg.frontier_cap}")
-    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
 
     def is_set(k: str) -> bool:
         v = getattr(cfg, k)
@@ -123,6 +134,13 @@ class RelaxBackend:
     min-update), the epoch wave computation, and the rebuild policy.  Layout
     state is a derived view and is never serialized — ``restore`` rebuilds
     it from the edge-pool mirror (``SlotAllocator``).
+
+    Lanes: every epoch takes one tree or a stack of S trees (``[S, N]``
+    dist/parent, ``[S]`` source) over the ONE shared layout, so the
+    ``*_batched`` methods — the reference's jit(vmap(epoch)) entry points —
+    are the same epochs here (a backend whose lane form differs overrides
+    them).  Frontiers of ADD epochs are shared ``[N]`` masks (ADD tails are
+    source-independent); deletion seeds and pending sets are per lane.
     """
 
     name: ClassVar[str]
@@ -151,8 +169,37 @@ class RelaxBackend:
                seed: torch.Tensor) -> tuple["SSSPState", "DeleteStats"]:
         raise NotImplementedError
 
+    def drain(self, sssp: "SSSPState", edges: "EdgePool",
+              pend: "PendingState", *, bucket_width: float
+              ) -> tuple["SSSPState", "PendingState", "RelaxStats"]:
+        """Settle the bucketed schedule's pending set (core/buckets.py
+        ``run_drain``: one pull into the invalidated set, then
+        threshold-paced push waves), returning an empty pending set."""
+        raise NotImplementedError
+
+    # --- batched multi-source epochs: the same lane-generic epochs
+    def relax_batched(self, sssp: "SSSPState", edges: "EdgePool",
+                      frontier: torch.Tensor
+                      ) -> tuple["SSSPState", "RelaxStats"]:
+        return self.relax(sssp, edges, frontier)
+
+    def delete_batched(self, sssp: "SSSPState", edges: "EdgePool",
+                       seed: torch.Tensor
+                       ) -> tuple["SSSPState", "DeleteStats"]:
+        return self.delete(sssp, edges, seed)
+
+    def drain_batched(self, sssp: "SSSPState", edges: "EdgePool",
+                      pend: "PendingState", *, bucket_width: float
+                      ) -> tuple["SSSPState", "PendingState", "RelaxStats"]:
+        return self.drain(sssp, edges, pend, bucket_width=bucket_width)
+
     def restore(self, alloc: Any) -> None:
         """Rebuild layout state from the pool mirror after a restore."""
+
+    def invariants(self) -> dict[str, bool]:
+        """Occupancy invariants of the device layout (diagnostics/tests),
+        as Python bools; none for a backend without a derived layout."""
+        return {}
 
 
 def make_backend(name: str, cfg: Any, *, use_kernel: bool = False,

@@ -18,9 +18,11 @@ max/min-reduce (``scatter_reduce_``), never an assignment — an assignment
 would let a padded no-op entry overwrite a live cell.
 
 Every wave goes through kernel K1 (``kernels/relax``) when ``use_kernel``;
-epochs mirror core/relax.py and core/delete.py exactly — same frontier
-evolution, same smallest-src-id tie-break — so (dist, parent) are
-bit-identical to the segment backend and to the reference.
+epochs mirror core/relax.py, core/delete.py and core/buckets.py exactly —
+same frontier evolution, same smallest-src-id tie-break — so (dist, parent)
+are bit-identical to the segment backend and to the reference.  Each epoch
+takes one tree or a lane stack ([S, N], the reference's ``ell_*_batched``);
+a lane stack's wave is ONE K1 launch for all S lanes over the shared block.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
-from repro_torch.core import ingest
+from repro_torch.core import ingest, relax
 from repro_torch.core.backends.base import (ELL_BLOWUP_RATIO, RelaxBackend,
                                             rank_within_rows, register)
 from repro_torch.core.relax import RelaxStats, converged_loop
@@ -122,6 +125,20 @@ def ell_update_min(ell: EllState, rows: torch.Tensor, src: torch.Tensor,
     ell.nbr_w.view(-1).scatter_reduce_(0, _flat_cells(ell, rows, kpos), val,
                                        "amin")
     return ell
+
+
+def ell_invariants(ell: EllState) -> dict[str, bool]:
+    """Occupancy invariants over the device fill marks (diagnostics/tests):
+    every cell at or past a row's fill mark must be empty (+inf), and fill
+    must stay within the block width — the device fill state has not
+    drifted from the host planner's."""
+    beyond = (torch.arange(ell.k, device=ell.fill.device)[None, :]
+              >= ell.fill[:, None])
+    return {
+        "beyond_fill_empty": bool(torch.where(beyond, torch.isinf(ell.nbr_w),
+                                              True).all()),
+        "fill_in_range": bool(((ell.fill >= 0) & (ell.fill <= ell.k)).all()),
+    }
 
 
 # ------------------------------------------------------------ host planner --
@@ -229,23 +246,53 @@ def ell_invalidate_and_recompute(sssp: SSSPState, nbr_idx: torch.Tensor,
     and tombstones offer nothing); improvements are applied to affected rows
     only, matching the segment path's ``aff[dst]`` edge mask.
     """
-    if not bool(seed.any()):
-        return sssp, del_mod.empty_delete_stats(seed.device)
+    any_seed = relax.host_flags(seed)
+    if not np.any(any_seed):
+        return sssp, del_mod.empty_delete_stats(seed)
     aff, inv_rounds, dist, parent = del_mod.invalidate(
-        sssp, seed, use_doubling=use_doubling)
-    dist_p, parent_p, improved = relax_wave(dist, parent, nbr_idx, nbr_w,
-                                            use_kernel=use_kernel)
-    improved = improved & aff
-    dist = torch.where(improved, dist_p, dist)
-    parent = torch.where(improved, parent_p, parent)
+        sssp, seed, use_doubling=use_doubling, gate=any_seed)
+    dist, parent, improved = ell_pull(dist, parent, nbr_idx, nbr_w, aff,
+                                      use_kernel=use_kernel)
     state, stats = ell_relax_until_converged(
         SSSPState(dist=dist, parent=parent, source=sssp.source), nbr_idx,
         nbr_w, improved, use_kernel=use_kernel)
-    return state, del_mod.DeleteStats(
-        invalidation_rounds=inv_rounds,
-        affected=aff.sum(),
-        recompute_rounds=stats.rounds + 1,
-        recompute_messages=stats.messages + improved.sum())
+    return state, del_mod.recompute_stats(aff, inv_rounds, improved, stats,
+                                          any_seed)
+
+
+def ell_pull(dist: torch.Tensor, parent: torch.Tensor, nbr_idx: torch.Tensor,
+             nbr_w: torch.Tensor, aff: torch.Tensor, *, use_kernel: bool
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bulk DistanceQuery pull as ONE unmasked ELL wave, improvements
+    applied to affected rows only (the segment path's ``aff[dst]`` mask;
+    unaffected rows cannot improve on a converged tree)."""
+    dist_p, parent_p, improved = relax_wave(dist, parent, nbr_idx, nbr_w,
+                                            use_kernel=use_kernel)
+    improved = improved & aff
+    return (torch.where(improved, dist_p, dist),
+            torch.where(improved, parent_p, parent), improved)
+
+
+def ell_drain(sssp: SSSPState, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+              pend: buckets.PendingState, *, bucket_width: float,
+              use_kernel: bool = False
+              ) -> tuple[SSSPState, buckets.PendingState, RelaxStats]:
+    """Bucketed drain on the ELL block: the pull is the deletion epoch's
+    (one unmasked wave, then ``improved &= aff``), so the drain's improved
+    sets — hence its wave sequence and stats — match the segment drain's."""
+
+    def wave(dist, parent, active):
+        return relax_wave(dist, parent, nbr_idx, nbr_w, frontier=active,
+                          use_kernel=use_kernel)
+
+    def pull_wave(dist, parent, aff):
+        return ell_pull(dist, parent, nbr_idx, nbr_w, aff,
+                        use_kernel=use_kernel)
+
+    dist, parent, stats = buckets.run_drain(
+        sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
+        wave=wave, pull_wave=pull_wave)
+    return (*buckets.drained(sssp, pend, dist, parent), stats)
 
 
 # ----------------------------------------------------------------- backend --
@@ -325,7 +372,14 @@ class EllpackBackend(RelaxBackend):
             sssp, self.state.nbr_idx, self.state.nbr_w, seed,
             use_doubling=self.cfg.use_doubling, use_kernel=self.use_kernel)
 
+    def drain(self, sssp, edges, pend, *, bucket_width):
+        return ell_drain(sssp, self.state.nbr_idx, self.state.nbr_w, pend,
+                         bucket_width=bucket_width, use_kernel=self.use_kernel)
+
     def restore(self, alloc):
         self.planner = EllPlanner(self.n, block_rows=self.cfg.ell_block_rows,
                                   init_k=self.cfg.ell_init_k)
         self._rebuild(alloc)
+
+    def invariants(self):
+        return ell_invariants(self.state)

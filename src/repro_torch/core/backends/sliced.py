@@ -14,7 +14,10 @@ of slices), the overflow lane (``overflow_min``: a scatter-min) and their
 combine (``combine_lanes``: the smallest-src-id rule across both lanes;
 the three live in ``kernels/relax/ref.py``, K2's plain version) —
 or, with ``use_fused``, the whole wave in kernel K2 (``kernels/relax/
-fused.py``).  Both are bit-identical to the reference's waves.
+fused.py``).  Both are bit-identical to the reference's waves.  Every
+epoch takes one tree or a lane stack ([S, N], the reference's
+``sliced_*_batched``): a lane stack's wave is one K2 launch, or one K1
+launch per width run, for all S lanes.
 
 The patch ops update the layout IN PLACE and tolerate pad_pow2-repeated
 entries (every scatter that could meet a repeat with a different value is a
@@ -31,14 +34,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
-from repro_torch.core import ingest
+from repro_torch.core import ingest, relax
 from repro_torch.core.backends.base import (RelaxBackend, rank_within_rows,
                                             register)
 from repro_torch.core.relax import RelaxStats, converged_loop
 from repro_torch.core.state import INF, SSSPState
 from repro_torch.graphs import csr as csr_mod
-from repro_torch.kernels.relax.fused import block_table, fused_sliced_relax
+from repro_torch.kernels.relax.fused import ChunkTable, fused_sliced_relax
 from repro_torch.kernels.relax.ref import (combine_lanes, ellpack_relax_ref,
                                            overflow_min, sliced_gather_min)
 from repro_torch.kernels.relax.relax import ellpack_relax
@@ -53,11 +57,12 @@ class SlicedEllState:
     Row r's cells occupy ``[base[r], base[r] + rowk[r])`` of the flat buffer
     (``flat_idx``, ``flat_w``); ``fill`` is each row's occupancy high-water
     mark.  Hub rows keep their surplus in-edges in the overflow segment
-    ``(osrc, odst, ow)``; empty/tombstoned entries carry w=+inf.  ``blocks``
-    is kernel K2's chunk table of the same geometry
-    (``fused.block_table``), made with ``base`` and ``rowk`` once per
+    ``(osrc, odst, ow)``; empty/tombstoned entries carry w=+inf.
+    ``widths`` / ``slice_rows`` are the geometry the buffer was laid out
+    by, and ``table`` is kernel K2's chunk table of that geometry with its
+    sizes (``fused.ChunkTable``), made with ``base`` and ``rowk`` once per
     layout where K2 runs (None elsewhere), so a wave does no host work or
-    copy for it.
+    copy for it; K2's wrapper takes all of it from here.
     """
 
     flat_idx: torch.Tensor  # i32[L] in-neighbor ids (0 where empty/tombstone)
@@ -68,7 +73,9 @@ class SlicedEllState:
     osrc: torch.Tensor      # i32[C] overflow in-neighbor ids
     odst: torch.Tensor      # i32[C] overflow destination rows
     ow: torch.Tensor        # f32[C] overflow weights (+inf empty/tombstone)
-    blocks: torch.Tensor | None  # i32[4 * chunks] K2's chunk table
+    widths: tuple[int, ...]  # per-slice widths of the flat buffer
+    slice_rows: int
+    table: ChunkTable | None  # K2's chunk table of (widths, slice_rows)
 
     @staticmethod
     def from_host(planner: "SlicedEllPlanner", arrays,
@@ -77,16 +84,25 @@ class SlicedEllState:
         """``arrays`` = (flat_idx, flat_w, fill, osrc, odst, ow) as the
         planner's ``empty_host`` / ``rebuild_host`` return them;
         ``with_blocks=False`` leaves out K2's chunk table, for a state K2
-        never reads."""
+        never reads.  Raises ``ValueError`` where the arrays are not of the
+        planner's current geometry (arrays of an earlier layout)."""
+        if (len(arrays[1]) != planner.cells
+                or len(arrays[2]) != planner.rows):
+            raise ValueError(
+                f"SlicedEllState.from_host: arrays of {len(arrays[1])} cells "
+                f"and {len(arrays[2])} rows for a layout of {planner.cells} "
+                f"cells and {planner.rows} rows")
         fi, fw, fill, osrc, odst, ow = (torch.tensor(a, device=device)
                                         for a in arrays)
+        widths = tuple(planner.widths)
         return SlicedEllState(
             flat_idx=fi, flat_w=fw, fill=fill,
             base=torch.tensor(planner.base.astype(np.int32), device=device),
             rowk=torch.tensor(planner.rowk, device=device),
-            osrc=osrc, odst=odst, ow=ow,
-            blocks=(torch.tensor(block_table(planner.widths, planner.sr),
-                                 device=device) if with_blocks else None))
+            osrc=osrc, odst=odst, ow=ow, widths=widths,
+            slice_rows=planner.sr,
+            table=(ChunkTable.build(widths, planner.sr, device)
+                   if with_blocks else None))
 
 
 # --------------------------------------------------------------- patch ops --
@@ -168,35 +184,49 @@ def sliced_update_min(st: SlicedEllState, rows: torch.Tensor,
     return st
 
 
+def sliced_invariants(st: SlicedEllState, *, width: int) -> dict[str, bool]:
+    """Occupancy invariants over the flat buffer (mirrors
+    ``ellpack.ell_invariants``): cells between a row's fill mark and its
+    slice width must be empty, and fill must stay within the width."""
+    k = torch.arange(width, device=st.fill.device)[None, :]
+    pos = (st.base[:, None] + k).clamp(0, st.flat_w.shape[0] - 1)
+    beyond = (k < st.rowk[:, None]) & (k >= st.fill[:, None])
+    return {
+        "beyond_fill_empty": bool(torch.where(
+            beyond, torch.isinf(st.flat_w[pos]), True).all()),
+        "fill_in_range": bool(((st.fill >= 0)
+                               & (st.fill <= st.rowk)).all()),
+    }
+
+
 # ------------------------------------------------------------------- waves --
 def sliced_relax_wave(dist: torch.Tensor, parent: torch.Tensor,
-                      st: SlicedEllState, *, widths: tuple[int, ...],
-                      slice_rows: int, num_vertices: int,
+                      st: SlicedEllState, *, num_vertices: int,
                       frontier: torch.Tensor | None = None,
                       use_kernel: bool = False, use_fused: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One hybrid relaxation wave (frontier-masked when given).
-    ``use_fused`` routes the whole wave through K2's wrapper (the CUDA
-    kernel on CUDA tensors, whatever ``use_kernel`` says, as the reference
-    always takes its Pallas kernel there); otherwise the ELL lane runs K1
-    when ``use_kernel``.  Returns (dist', parent', improved)."""
-    n = dist.shape[0]
+    """One hybrid relaxation wave (frontier-masked when given) of one tree
+    or of a lane stack.  ``use_fused`` routes the whole wave through K2's
+    wrapper (the CUDA kernel on CUDA tensors, whatever ``use_kernel`` says,
+    as the reference always takes its Pallas kernel there); otherwise the
+    ELL lane runs K1 when ``use_kernel``.  Returns (dist', parent',
+    improved)."""
+    n = dist.shape[-1]
     if use_fused:
         act = (torch.ones_like(dist, dtype=torch.bool) if frontier is None
-               else frontier)
-        comb, new_parent = fused_sliced_relax(
-            dist, act, st.flat_idx, st.flat_w, st.osrc, st.odst, st.ow,
-            widths=widths, slice_rows=slice_rows, blocks=st.blocks)
-        comb, new_parent = comb[:n], new_parent[:n]
+               else frontier.expand(dist.shape).contiguous())
+        comb, new_parent = fused_sliced_relax(dist, act, st)
+        comb, new_parent = comb[..., :n], new_parent[..., :n]
     else:
         offers = dist if frontier is None else torch.where(frontier, dist, INF)
         best, arg = sliced_gather_min(
-            offers, st.flat_idx, st.flat_w, widths=widths,
-            slice_rows=slice_rows,
+            offers, st.flat_idx, st.flat_w, widths=st.widths,
+            slice_rows=st.slice_rows,
             relax=ellpack_relax if use_kernel else ellpack_relax_ref)
         obest, oarg = overflow_min(offers, st.osrc, st.odst, st.ow,
                                    num_vertices)
-        comb, new_parent = combine_lanes(best[:n], arg[:n], obest, oarg)
+        comb, new_parent = combine_lanes(best[..., :n], arg[..., :n], obest,
+                                         oarg)
     improved = comb < dist
     return (torch.where(improved, comb, dist),
             torch.where(improved, new_parent, parent), improved)
@@ -205,7 +235,6 @@ def sliced_relax_wave(dist: torch.Tensor, parent: torch.Tensor,
 # ------------------------------------------------------------------ epochs --
 def sliced_relax_until_converged(sssp: SSSPState, st: SlicedEllState,
                                  frontier: torch.Tensor, *,
-                                 widths: tuple[int, ...], slice_rows: int,
                                  num_vertices: int, use_kernel: bool = False,
                                  use_fused: bool = False
                                  ) -> tuple[SSSPState, RelaxStats]:
@@ -215,8 +244,7 @@ def sliced_relax_until_converged(sssp: SSSPState, st: SlicedEllState,
 
     def wave(dist, parent, frontier):
         return sliced_relax_wave(
-            dist, parent, st, widths=widths, slice_rows=slice_rows,
-            num_vertices=num_vertices, frontier=frontier,
+            dist, parent, st, num_vertices=num_vertices, frontier=frontier,
             use_kernel=use_kernel, use_fused=use_fused)
 
     dist, parent, rounds, msgs = converged_loop(
@@ -225,35 +253,62 @@ def sliced_relax_until_converged(sssp: SSSPState, st: SlicedEllState,
             RelaxStats(rounds=rounds, messages=msgs))
 
 
+def sliced_pull(dist: torch.Tensor, parent: torch.Tensor, st: SlicedEllState,
+                aff: torch.Tensor, **kw
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bulk pull as one unmasked hybrid wave, improvements applied to
+    affected rows only (``ellpack.ell_pull``'s pattern), so hub rows also
+    pull through the overflow lane."""
+    dist_p, parent_p, improved = sliced_relax_wave(dist, parent, st, **kw)
+    improved = improved & aff
+    return (torch.where(improved, dist_p, dist),
+            torch.where(improved, parent_p, parent), improved)
+
+
 def sliced_invalidate_and_recompute(
     sssp: SSSPState, st: SlicedEllState, seed: torch.Tensor, *,
-    widths: tuple[int, ...], slice_rows: int, num_vertices: int,
-    use_doubling: bool = True, use_kernel: bool = False,
+    num_vertices: int, use_doubling: bool = True, use_kernel: bool = False,
     use_fused: bool = False,
 ) -> tuple[SSSPState, del_mod.DeleteStats]:
     """Deletion epoch on the hybrid layout — the dense-ELL deletion epoch's
     structure (shared invalidation, the bulk pull as one unmasked wave
-    applied to affected rows only), with the hybrid wave so hub rows also
-    pull through the overflow lane."""
-    if not bool(seed.any()):
-        return sssp, del_mod.empty_delete_stats(seed.device)
+    applied to affected rows only)."""
+    any_seed = relax.host_flags(seed)
+    if not np.any(any_seed):
+        return sssp, del_mod.empty_delete_stats(seed)
     aff, inv_rounds, dist, parent = del_mod.invalidate(
-        sssp, seed, use_doubling=use_doubling)
-    kw = dict(widths=widths, slice_rows=slice_rows,
-              num_vertices=num_vertices, use_kernel=use_kernel,
+        sssp, seed, use_doubling=use_doubling, gate=any_seed)
+    kw = dict(num_vertices=num_vertices, use_kernel=use_kernel,
               use_fused=use_fused)
-    dist_p, parent_p, improved = sliced_relax_wave(dist, parent, st, **kw)
-    improved = improved & aff
-    dist = torch.where(improved, dist_p, dist)
-    parent = torch.where(improved, parent_p, parent)
+    dist, parent, improved = sliced_pull(dist, parent, st, aff, **kw)
     state, stats = sliced_relax_until_converged(
         SSSPState(dist=dist, parent=parent, source=sssp.source), st,
         improved, **kw)
-    return state, del_mod.DeleteStats(
-        invalidation_rounds=inv_rounds,
-        affected=aff.sum(),
-        recompute_rounds=stats.rounds + 1,
-        recompute_messages=stats.messages + improved.sum())
+    return state, del_mod.recompute_stats(aff, inv_rounds, improved, stats,
+                                          any_seed)
+
+
+def sliced_drain(sssp: SSSPState, st: SlicedEllState,
+                 pend: buckets.PendingState, *, num_vertices: int,
+                 bucket_width: float, use_kernel: bool = False,
+                 use_fused: bool = False
+                 ) -> tuple[SSSPState, buckets.PendingState, RelaxStats]:
+    """Bucketed drain on the hybrid layout — the deletion epoch's pull
+    pattern, so the drain's wave sequence and stats match the segment and
+    dense-ELL drains'."""
+    kw = dict(num_vertices=num_vertices, use_kernel=use_kernel,
+              use_fused=use_fused)
+
+    def wave(dist, parent, active):
+        return sliced_relax_wave(dist, parent, st, frontier=active, **kw)
+
+    def pull_wave(dist, parent, aff):
+        return sliced_pull(dist, parent, st, aff, **kw)
+
+    dist, parent, stats = buckets.run_drain(
+        sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
+        wave=wave, pull_wave=pull_wave)
+    return (*buckets.drained(sssp, pend, dist, parent), stats)
 
 
 # ------------------------------------------------------------ host planner --
@@ -447,9 +502,8 @@ class SlicedBackend(RelaxBackend):
                       width=self.planner.max_width)
 
     def _epoch_kw(self) -> dict:
-        return dict(widths=tuple(self.planner.widths),
-                    slice_rows=self.planner.sr, num_vertices=self.n,
-                    use_kernel=self.use_kernel, use_fused=self.use_fused)
+        return dict(num_vertices=self.n, use_kernel=self.use_kernel,
+                    use_fused=self.use_fused)
 
     def relax(self, sssp, edges, frontier):
         return sliced_relax_until_converged(sssp, self.state, frontier,
@@ -460,6 +514,13 @@ class SlicedBackend(RelaxBackend):
             sssp, self.state, seed, use_doubling=self.cfg.use_doubling,
             **self._epoch_kw())
 
+    def drain(self, sssp, edges, pend, *, bucket_width):
+        return sliced_drain(sssp, self.state, pend, bucket_width=bucket_width,
+                            **self._epoch_kw())
+
     def restore(self, alloc):
         self.planner = self._mk_planner()
         self._rebuild(alloc)
+
+    def invariants(self):
+        return sliced_invariants(self.state, width=self.planner.max_width)

@@ -20,16 +20,25 @@ the paper's flood), ``on_duplicate``, ``alloc_impl``, and
     compacted worklist and the capacity ladder, core/frontier.py) or "auto"
     (ADD epochs sparse when the host-known frontier fits the top rung;
     deletions stay dense); ``frontier_kernel`` runs those waves in kernel
-    K3.
+    K3;
+  * ``wave_schedule`` — "rounds" settles every epoch to fixpoint;
+    "buckets" (core/buckets.py) defers convergence into a pending set that
+    ``drain()`` settles bucket by bucket at query / checkpoint time, with
+    ``bucket_width`` a float, ``inf`` (one bucket) or "auto" (a
+    pow2-quantized median of the live weights);
+  * ``sources=(s0, s1, ...)`` — batched multi-source serving: stacked
+    ``[S, N]`` trees, one per source, over ONE shared layout; every epoch
+    runs on the whole stack (K1 and K2 serve all S lanes in one launch per
+    wave) and each lane is bit-identical to a single-source engine of its
+    source (``source`` is ignored when ``sources`` is set).
 The three kernel switches default to None: the kernel iff the device is
 CUDA, the plain torch version on the CPU (the reference's defaults there).
 An explicit True or False holds on either device; a kernel switch on a CPU
 engine still takes the plain version, since the wrappers launch only for
 CUDA tensors.
 ``device`` defaults to "cuda" and raises when CUDA is unavailable — there
-is no silent CPU fallback; tests pass ``device="cpu"``.  Options of the
-reference that later slices port (multi-source ``sources``, the bucketed
-schedule, observability) raise ``ValueError``.
+is no silent CPU fallback; tests pass ``device="cpu"``.  The reference's
+``observability``, which a later slice ports, raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backends as bk_mod
+from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
 from repro_torch.core import events as ev
 from repro_torch.core import frontier as frontier_mod
@@ -66,11 +76,14 @@ class EngineConfig:
     sliced_hub_k: int = 32        # hub threshold: rows past it spill to COO
     sliced_init_k: int = 2        # initial per-slice width; doubles at rebuild
     sliced_fused: bool | None = None  # None = kernel K2 iff device is CUDA
-    wave_schedule: str = "rounds"
+    wave_schedule: str = "rounds"   # or "buckets" (core/buckets.py)
+    # delta; inf = one bucket (plain converge); "auto" = a pow2-quantized
+    # median of the live pool weights, resolved at drain time
+    bucket_width: float | str = 1.0
     frontier_mode: str = "dense"
     frontier_cap: int = 0           # top ladder rung; 0 = derive (~N/64)
     frontier_kernel: bool | None = None  # None = K3 iff device is CUDA
-    sources: tuple[int, ...] | None = None
+    sources: tuple[int, ...] | None = None   # None = single-source
     observability: bool = False
     alloc_impl: str = "columnar"
     device: str = "cuda"
@@ -78,10 +91,17 @@ class EngineConfig:
     def __post_init__(self):
         bk_mod.validate_backend_config(self)
         ingest.allocator_cls(self.alloc_impl)  # raises on unknown impl
-        for knob, off in (("sources", None), ("observability", False)):
-            if getattr(self, knob) != off:
-                raise ValueError(f"{knob}={getattr(self, knob)!r} is not yet "
-                                 f"ported to repro_torch")
+        if self.observability:
+            raise ValueError("observability=True is not yet ported to "
+                             "repro_torch")
+        if self.sources is not None:
+            self.sources = tuple(int(s) for s in self.sources)
+            bad = [s for s in self.sources
+                   if not 0 <= s < self.num_vertices]
+            if not self.sources or bad:
+                raise ValueError(
+                    f"sources must be non-empty vertex ids in "
+                    f"[0, {self.num_vertices}); got {self.sources}")
         dev = torch.device(self.device)
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be CUDA or CPU; got {self.device!r}")
@@ -107,12 +127,16 @@ class SSSPDelEngine(StreamEngineBase):
 
     def __init__(self, cfg: EngineConfig):
         self.device = torch.device(cfg.device)
-        super().__init__(self.device)
+        super().__init__(self.device, cfg.sources)
         self.cfg = cfg
         self.alloc = ingest.make_allocator(cfg.edge_capacity,
                                            cfg.on_duplicate, cfg.alloc_impl)
         self.state = GraphState.init(cfg.num_vertices, cfg.edge_capacity,
                                      cfg.source, self.device)
+        if self.sources is not None:
+            # stacked [S, N] trees over the single shared edge pool
+            self.state.sssp = SSSPState.init_batched(
+                cfg.num_vertices, self.sources, self.device)
         # the kernel switches, resolved once; cfg keeps what the caller set,
         # so validate_backend_config still sees an unset knob as unset
         self._use_kernel = resolve_kernel(cfg.ell_use_kernel, self.device)
@@ -133,6 +157,20 @@ class SSSPDelEngine(StreamEngineBase):
                                                   self.device)
             self._caps = frontier_mod.capacity_ladder(cfg.num_vertices,
                                                       cfg.frontier_cap)
+        self.bucketed = cfg.wave_schedule == "buckets"
+        self._pend = self._empty_pending()
+        # host-side upper bound on pending-push occupancy (the "auto" drain
+        # routing signal; reset per drain, pinned to N by a deletion, whose
+        # affected set is unknown host-side)
+        self._pend_bound = 0
+        # bucket_width="auto" resolution cache: (resolved width, live-edge
+        # estimate at resolution) — re-resolved when the pool doubles/halves
+        self._bw_cache: tuple[float, int] | None = None
+
+    def _empty_pending(self) -> buckets.PendingState:
+        return buckets.empty_pending(
+            self.cfg.num_vertices,
+            None if self.sources is None else len(self.sources), self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -155,6 +193,26 @@ class SSSPDelEngine(StreamEngineBase):
         if self.cfg.frontier_mode == "sparse":
             return True
         return occupancy_bound <= self._caps[-1]
+
+    def _bucket_width(self) -> float:
+        """Resolve ``bucket_width="auto"`` host-side, as the reference does:
+        the pow2-quantized median of the live pool weights, re-resolved only
+        when the live-edge estimate doubles or halves."""
+        if self.cfg.bucket_width != "auto":
+            return self.cfg.bucket_width
+        live_est = max(1, self.n_adds - self.n_dels)
+        if self._bw_cache is not None:
+            width, at = self._bw_cache
+            if at / 2 <= live_est <= at * 2:
+                return width
+        w = self.alloc.active_coo()[2]
+        if len(w) == 0:
+            width = 1.0
+        else:
+            med = max(float(np.percentile(w, 50.0)), 1e-6)
+            width = float(2.0 ** np.round(np.log2(med)))
+        self._bw_cache = (width, live_est)
+        return width
 
     def _fallback_to_sliced(self) -> None:
         """relax_backend="auto": the dense-ELL rebuild just reported hub
@@ -181,15 +239,28 @@ class SSSPDelEngine(StreamEngineBase):
             self._out.apply_adds(plan, self.alloc)
         if self._auto and self.backend.blowup:
             self._fallback_to_sliced()
-        if self._route_sparse(len(np.unique(plan.src))):
-            self.state.sssp, stats = frontier_mod.sparse_relax_until_converged(
-                self.state.sssp, self.state.edges, self._out.state, frontier,
-                num_vertices=self.cfg.num_vertices, caps=self._caps,
-                use_kernel=self._frontier_kernel)
+        tails = len(np.unique(plan.src))
+        if self.bucketed:
+            # deferred settle: record the push obligation and return — the
+            # drain delivers the offers bucket by bucket
+            self._pend = buckets.enqueue_push(self._pend, frontier,
+                                              self.state.sssp.dist)
+            self._pend_bound += tails
         else:
-            self.state.sssp, stats = self.backend.relax(
-                self.state.sssp, self.state.edges, frontier)
-        self._accumulate_relax(stats)
+            if self._route_sparse(tails):
+                sp_fn = (frontier_mod.sparse_relax_until_converged
+                         if self.sources is None
+                         else frontier_mod.sparse_relax_batched)
+                self.state.sssp, stats = sp_fn(
+                    self.state.sssp, self.state.edges, self._out.state,
+                    frontier, num_vertices=self.cfg.num_vertices,
+                    caps=self._caps, use_kernel=self._frontier_kernel)
+            else:
+                relax_fn = (self.backend.relax if self.sources is None
+                            else self.backend.relax_batched)
+                self.state.sssp, stats = relax_fn(
+                    self.state.sssp, self.state.edges, frontier)
+            self._accumulate_relax(stats)
         self.n_adds += len(plan.slots)
         self.n_epochs += 1
 
@@ -202,38 +273,99 @@ class SSSPDelEngine(StreamEngineBase):
             slots_p, psrc_p, pdst_p = ingest.pad_pow2(slots, psrc, pdst)
             if self._sparse:
                 self._out.apply_dels(psrc_p, pdst_p)
-            # Seed from the *pre-deletion* tree, then deactivate.
-            seed = del_mod.deletion_seed_for_edges(
-                self.state.sssp, self._dev(psrc_p), self._dev(pdst_p),
-                self.cfg.num_vertices)
-            ingest.apply_dels(self.state.edges, self._dev(slots_p))
-            self.backend.apply_dels(pdst_p, psrc_p)
-            # the affected region's size is device-only knowledge, so only
-            # "sparse" routes deletions sparse; "auto" keeps them dense
-            if self.cfg.frontier_mode == "sparse":
-                self.state.sssp, dstats = \
-                    frontier_mod.sparse_invalidate_and_recompute(
-                        self.state.sssp, self.state.edges, self._out.state,
-                        seed, num_vertices=self.cfg.num_vertices,
-                        caps=self._caps, use_doubling=self.cfg.use_doubling,
-                        use_kernel=self._frontier_kernel)
+            if self.bucketed:
+                self._lazy_del(slots_p, psrc_p, pdst_p)
             else:
-                self.state.sssp, dstats = self.backend.delete(
-                    self.state.sssp, self.state.edges, seed)
-            self._accumulate_delete(dstats)
+                self._eager_del(slots_p, psrc_p, pdst_p)
             self.n_dels += len(slots)
             self.n_epochs += 1
 
+    def _lazy_del(self, slots_p: np.ndarray, psrc_p: np.ndarray,
+                  pdst_p: np.ndarray) -> None:
+        """Bucketed deletion: deactivate + seed + mark + invalidate, the
+        recomputation deferred to the drain."""
+        self.backend.apply_dels(pdst_p, psrc_p)
+        # the affected subtree's size is device-only knowledge; pin the
+        # pending bound to N so the "auto" drain routes dense
+        self._pend_bound = self.cfg.num_vertices
+        self.state.sssp, _, self._pend, dstats = buckets.lazy_delete(
+            self.state.sssp, self.state.edges, self._pend,
+            self._dev(psrc_p), self._dev(pdst_p), self._dev(slots_p),
+            num_vertices=self.cfg.num_vertices,
+            use_doubling=self.cfg.use_doubling)
+        self._accumulate_delete(dstats)
+
+    def _eager_del(self, slots_p: np.ndarray, psrc_p: np.ndarray,
+                   pdst_p: np.ndarray) -> None:
+        """Rounds deletion: seed from the *pre-deletion* tree (per lane on a
+        batched engine), deactivate, invalidate and recompute."""
+        seed = del_mod.deletion_seed_for_edges(
+            self.state.sssp, self._dev(psrc_p), self._dev(pdst_p),
+            self.cfg.num_vertices)
+        ingest.apply_dels(self.state.edges, self._dev(slots_p))
+        self.backend.apply_dels(pdst_p, psrc_p)
+        # the affected region's size is device-only knowledge, so only
+        # "sparse" routes deletions sparse; "auto" keeps them dense
+        if self.cfg.frontier_mode == "sparse":
+            sp_fn = (frontier_mod.sparse_invalidate_and_recompute
+                     if self.sources is None
+                     else frontier_mod.sparse_delete_batched)
+            self.state.sssp, dstats = sp_fn(
+                self.state.sssp, self.state.edges, self._out.state, seed,
+                num_vertices=self.cfg.num_vertices, caps=self._caps,
+                use_doubling=self.cfg.use_doubling,
+                use_kernel=self._frontier_kernel)
+        else:
+            delete_fn = (self.backend.delete if self.sources is None
+                         else self.backend.delete_batched)
+            self.state.sssp, dstats = delete_fn(
+                self.state.sssp, self.state.edges, seed)
+        self._accumulate_delete(dstats)
+
     # ----------------------------------------------------------------- query
-    def _snapshot(self) -> tuple[np.ndarray, np.ndarray]:
+    def drain(self) -> None:
+        """Settle the bucketed schedule's pending work (no-op under the
+        rounds schedule; with nothing pending it costs the pull check and
+        one loop check).  Public so callers can force a converged tree
+        without a query's readback."""
+        if not self.bucketed:
+            return
+        bw = self._bucket_width()
+        if self._route_sparse(self._pend_bound):
+            sp_fn = (frontier_mod.sparse_drain if self.sources is None
+                     else frontier_mod.sparse_drain_batched)
+            sssp, self._pend, stats = sp_fn(
+                self.state.sssp, self.state.edges, self._out.state,
+                self._pend, num_vertices=self.cfg.num_vertices,
+                caps=self._caps, bucket_width=bw,
+                use_kernel=self._frontier_kernel)
+        else:
+            drain_fn = (self.backend.drain if self.sources is None
+                        else self.backend.drain_batched)
+            sssp, self._pend, stats = drain_fn(
+                self.state.sssp, self.state.edges, self._pend,
+                bucket_width=bw)
+        self._pend_bound = 0
+        self.state.sssp = sssp
+        self._accumulate_relax(stats)
+
+    def _snapshot(self, lane: int | None) -> tuple[np.ndarray, np.ndarray]:
+        """Drain, then read back; a routed lane query transfers only that
+        source's [N] pair."""
+        self.drain()
         s = self.state.sssp
-        return _host(s.dist), _host(s.parent)
+        if lane is None:
+            return _host(s.dist), _host(s.parent)
+        return _host(s.dist[lane]), _host(s.parent[lane])
 
     # ------------------------------------------------------------ checkpoint
     def checkpoint(self) -> dict[str, np.ndarray]:
         """O(N+E) snapshot with the reference engine's keys and dtypes, so
-        either package restores the other's.  Backend layout state is NOT
-        serialized — it is a derived view, rebuilt from the pool."""
+        either package restores the other's (a batched engine's holds [S, N]
+        dist/parent and an [S] source).  It drains first: a checkpoint
+        captures a converged tree.  Backend layout state is NOT serialized —
+        it is a derived view, rebuilt from the pool."""
+        self.drain()
         e, s = self.state.edges, self.state.sssp
         return {
             "src": _host(e.src), "dst": _host(e.dst), "w": _host(e.w),
@@ -260,3 +392,6 @@ class SSSPDelEngine(StreamEngineBase):
         self.backend.restore(self.alloc)
         if self._sparse:
             self._out.restore(self.alloc)
+        # checkpoints are taken after a drain, so nothing was pending
+        self._pend = self._empty_pending()
+        self._pend_bound = 0

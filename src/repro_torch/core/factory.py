@@ -6,13 +6,21 @@
     eng = make_engine(num_vertices=n, edge_capacity=m, source=0,
                       relax_backend="auto",                # K1, then K2
                       frontier_mode="sparse")              # K3
+    eng = make_engine(num_vertices=n, edge_capacity=m,
+                      wave_schedule="buckets", bucket_width="auto")
+    eng = make_engine(num_vertices=n, edge_capacity=m,
+                      sources=(0, 5, 9))     # [S, N] lanes, one layout
 
 Every keyword must be a field of ``EngineConfig``; anything else raises a
-ValueError listing the valid knobs.  The kernel switches
-(``ell_use_kernel``, ``sliced_fused``, ``frontier_kernel``) default to
-the kernel on a CUDA device and the plain torch version on the CPU; pass
-False to run the plain version on the card.  The sharded engine (``partitions=`` /
-``mesh=`` in the reference) is not yet ported.
+ValueError listing the valid knobs: the backend and its layout knobs, the
+kernel switches (``ell_use_kernel``, ``sliced_fused``, ``frontier_kernel``,
+which default to the kernel on a CUDA device and the plain torch version
+on the CPU; pass False to run the plain version on the card), the
+frontier (``frontier_mode``, ``frontier_cap``), the schedule
+(``wave_schedule``, ``bucket_width``), ``sources``, ``batch_deletions``,
+``use_doubling``, ``on_duplicate``, ``alloc_impl`` and ``device``.
+``observability`` and the sharded engine (``partitions=`` / ``mesh=`` in
+the reference) are not yet ported.
 """
 from __future__ import annotations
 

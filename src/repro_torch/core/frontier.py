@@ -18,7 +18,13 @@ path instead:
   * ``sparse_push_wave`` — the gathered-edges wave over the worklist's OUT
     rows, relaxed by kernel K3 (``frontier_kernel=True``) or its plain
     version;
-  * the sparse relax and delete epochs, mirroring the dense ones' loops.
+  * the sparse relax and delete epochs, mirroring the dense ones' loops,
+    and the bucketed drain (``sparse_drain``: the segment pull, then each
+    bucket's waves through the ladder);
+  * their lane-stack forms (``sparse_*_batched``), which run the one-tree
+    epoch lane by lane, K3 once per lane and wave.  The reference vmaps
+    them, under which ``lax.cond`` runs both ladder branches, and calls
+    them correctness-grade; a K3 lane form is still to come.
 
 The sparse wave's candidates are exactly the live out-edges of frontier
 vertices — the set the dense wave's ``active & frontier[src]`` mask selects
@@ -36,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
 from repro_torch.core import ingest, relax
 from repro_torch.core.backends.sliced import (SlicedEllPlanner,
@@ -253,7 +260,7 @@ def sparse_invalidate_and_recompute(
     which the OUT sidecar cannot serve and which runs once per epoch); only
     the push recompute waves run through the ladder."""
     if not bool(seed.any()):
-        return sssp, del_mod.empty_delete_stats(seed.device)
+        return sssp, del_mod.empty_delete_stats(seed)
     aff, inv_rounds, dist, parent = del_mod.invalidate(
         sssp, seed, use_doubling=use_doubling)
     dist, parent, improved = del_mod.pull_once(dist, parent, edges, aff,
@@ -262,8 +269,86 @@ def sparse_invalidate_and_recompute(
         SSSPState(dist=dist, parent=parent, source=sssp.source), edges, st,
         improved, num_vertices=num_vertices, caps=caps,
         use_kernel=use_kernel)
-    return state, del_mod.DeleteStats(
-        invalidation_rounds=inv_rounds,
-        affected=aff.sum(),
-        recompute_rounds=stats.rounds + 1,
-        recompute_messages=stats.messages + improved.sum())
+    return state, del_mod.recompute_stats(aff, inv_rounds, improved, stats,
+                                          True)
+
+
+def sparse_drain(sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
+                 pend: buckets.PendingState, *, num_vertices: int,
+                 caps: tuple[int, ...], bucket_width: float,
+                 use_kernel: bool = False
+                 ) -> tuple[SSSPState, buckets.PendingState, RelaxStats]:
+    """Sparse bucketed drain: ``buckets.run_drain`` with each bucket's
+    active mask compacted through the ladder.  The pull is
+    ``delete.pull_once`` (segment-style, the dense pool's in-edges), as in
+    ``segment_drain``, so the wave sequence and stats match by
+    construction."""
+
+    def wave(dist, parent, active):
+        return ladder_wave(dist, parent, active, st, edges, caps=caps,
+                           num_vertices=num_vertices, use_kernel=use_kernel)
+
+    def pull_wave(dist, parent, aff):
+        return del_mod.pull_once(dist, parent, edges, aff, num_vertices)
+
+    dist, parent, stats = buckets.run_drain(
+        sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
+        wave=wave, pull_wave=pull_wave)
+    return (*buckets.drained(sssp, pend, dist, parent), stats)
+
+
+# ------------------------------------------------ lane-stack renderings --
+def _lane(sssp: SSSPState, i: int) -> SSSPState:
+    return SSSPState(dist=sssp.dist[i], parent=sssp.parent[i],
+                     source=sssp.source[i])
+
+
+def _stack(states: list[SSSPState]) -> SSSPState:
+    return SSSPState(dist=torch.stack([s.dist for s in states]),
+                     parent=torch.stack([s.parent for s in states]),
+                     source=torch.stack([s.source for s in states]))
+
+
+def _stack_stats(stats: list) -> tuple:
+    """Per-lane stats, field by field: host rounds into an i64[S] array,
+    device counts into an [S] tensor."""
+    return type(stats[0])(*(
+        torch.stack(col) if isinstance(col[0], torch.Tensor)
+        else np.asarray(col, np.int64) for col in zip(*stats)))
+
+
+def sparse_relax_batched(sssp: SSSPState, edges: EdgePool,
+                         st: SlicedEllState, frontier: torch.Tensor, **kw
+                         ) -> tuple[SSSPState, RelaxStats]:
+    """``sparse_relax_until_converged`` lane by lane (the shared ADD
+    frontier in each)."""
+    out = [sparse_relax_until_converged(_lane(sssp, i), edges, st, frontier,
+                                        **kw)
+           for i in range(sssp.dist.shape[0])]
+    return _stack([o[0] for o in out]), _stack_stats([o[1] for o in out])
+
+
+def sparse_delete_batched(sssp: SSSPState, edges: EdgePool,
+                          st: SlicedEllState, seed: torch.Tensor, **kw
+                          ) -> tuple[SSSPState, del_mod.DeleteStats]:
+    """``sparse_invalidate_and_recompute`` lane by lane, each lane with its
+    own seed."""
+    out = [sparse_invalidate_and_recompute(_lane(sssp, i), edges, st,
+                                           seed[i], **kw)
+           for i in range(sssp.dist.shape[0])]
+    return _stack([o[0] for o in out]), _stack_stats([o[1] for o in out])
+
+
+def sparse_drain_batched(sssp: SSSPState, edges: EdgePool,
+                         st: SlicedEllState, pend: buckets.PendingState,
+                         **kw) -> tuple[SSSPState, buckets.PendingState,
+                                        RelaxStats]:
+    """``sparse_drain`` lane by lane, each lane with its own pending set."""
+    out = [sparse_drain(_lane(sssp, i), edges, st,
+                        buckets.PendingState(pend.push[i], pend.pull[i]),
+                        **kw)
+           for i in range(sssp.dist.shape[0])]
+    return (_stack([o[0] for o in out]),
+            buckets.PendingState(torch.stack([o[1].push for o in out]),
+                                 torch.stack([o[1].pull for o in out])),
+            _stack_stats([o[2] for o in out]))

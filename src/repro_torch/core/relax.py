@@ -18,11 +18,21 @@ has no counterpart, so ``converged_loop`` is a Python loop that reads the
 loop condition (``frontier.any()``) back to the host once per wave — the
 per-wave host sync this port pays.  Rounds are therefore host integers;
 message counts stay device tensors until a query reads them.
+
+Lanes: every function here also takes a stack of S trees — ``dist``,
+``parent`` and the frontier ``[S, N]`` over ONE shared edge pool (the
+batched multi-source engine; the reference vmaps its epochs over the
+source axis).  ``converged_loop`` then reads the S lanes' flags back in one
+sync per wave and advances a lane's round count only while that lane's own
+frontier is non-empty, as the reference's vmapped ``while_loop`` freezes a
+finished lane's carry; a wave over an empty frontier changes nothing, so
+the finished lanes ride along unchanged.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.state import INF, EdgePool, SSSPState
@@ -31,30 +41,51 @@ BIG = 2**31 - 1   # "no candidate" key of the smallest-src-id pass
 
 
 class RelaxStats(NamedTuple):
-    rounds: int              # BSP rounds until convergence
-    messages: torch.Tensor   # i64[] — DistanceUpdate deliveries (improvements)
+    rounds: int | np.ndarray  # BSP rounds until convergence (i64[S] lanes)
+    messages: torch.Tensor    # i64[] or [S] — DistanceUpdate deliveries
+
+
+def host(flags: torch.Tensor) -> bool | np.ndarray:
+    """Per-lane flags read back to the host in ONE sync: a bool for a 0-d
+    tensor, a bool[S] array for an [S] one.  Every loop condition of the
+    eager epochs is read through here or ``host_flags``."""
+    return bool(flags) if flags.dim() == 0 else flags.cpu().numpy()
+
+
+def host_flags(mask: torch.Tensor) -> bool | np.ndarray:
+    """``mask.any(-1)`` read back in one sync: whether each lane's mask
+    (``[N]`` or ``[S, N]``) has a set entry."""
+    return host(mask.any(-1))
+
+
+def no_rounds(like: torch.Tensor) -> int | np.ndarray:
+    """A zero round count shaped like ``like``'s lanes."""
+    return 0 if like.dim() == 1 else np.zeros(like.shape[0], np.int64)
 
 
 def segment_min(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
                 fill: float | int) -> torch.Tensor:
-    """``jax.ops.segment_min``: per-segment min, ``fill`` where a segment is
-    empty (+inf for values, ``BIG`` for the src-id key pass)."""
-    out = torch.full((num_segments,), fill, dtype=vals.dtype,
-                     device=vals.device)
-    return out.scatter_reduce_(0, seg.long(), vals, "amin", include_self=True)
+    """``jax.ops.segment_min`` over the last axis: per-segment min, ``fill``
+    where a segment is empty (+inf for values, ``BIG`` for the src-id key
+    pass).  ``vals`` may carry leading lane axes; ``seg`` is shared."""
+    out = torch.full((*vals.shape[:-1], num_segments), fill,
+                     dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(-1, seg.long().expand_as(vals), vals, "amin",
+                               include_self=True)
 
 
 def relax_round(dist: torch.Tensor, parent: torch.Tensor, edges: EdgePool,
                 frontier: torch.Tensor, *, num_vertices: int
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One bulk message wave. Returns (dist, parent, new_frontier)."""
-    live = edges.active & frontier[edges.src]
-    cand = torch.where(live, dist[edges.src] + edges.w, INF)
+    """One bulk message wave ([N] or [S, N] lanes over the shared pool).
+    Returns (dist, parent, new_frontier)."""
+    live = edges.active & frontier[..., edges.src]
+    cand = torch.where(live, dist[..., edges.src] + edges.w, INF)
     best = segment_min(cand, edges.dst, num_vertices, INF)
     improved = best < dist
     # argmin edge per dst, tie-break by smallest src id (deterministic; the
     # same rule every backend and the kernel apply)
-    hit = live & (cand == best[edges.dst]) & improved[edges.dst]
+    hit = live & (cand == best[..., edges.dst]) & improved[..., edges.dst]
     cand_key = torch.where(hit, edges.src, BIG)
     new_parent = segment_min(cand_key, edges.dst, num_vertices, BIG)
     dist = torch.where(improved, best, dist)
@@ -68,18 +99,24 @@ Wave = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
 
 def converged_loop(dist: torch.Tensor, parent: torch.Tensor,
                    frontier: torch.Tensor, wave: Wave
-                   ) -> tuple[torch.Tensor, torch.Tensor, int, torch.Tensor]:
+                   ) -> tuple[torch.Tensor, torch.Tensor, int | np.ndarray,
+                              torch.Tensor]:
     """The shared wave-to-fixpoint driver: loop ``wave(dist, parent,
     frontier) -> (dist, parent, improved)`` while the frontier is non-empty.
     Returns (dist, parent, rounds, messages) with the reference's counting:
-    one round per executed wave, one message per improvement."""
-    rounds = 0
-    msgs = torch.zeros((), dtype=torch.int64, device=dist.device)
-    while bool(frontier.any()):   # the per-wave host sync
+    one round per executed wave, one message per improvement — per lane
+    for an [S, N] stack, where a lane counts a round only while its own
+    frontier is non-empty (one flag read per wave for all S lanes)."""
+    rounds = no_rounds(dist)
+    msgs = torch.zeros(dist.shape[:-1], dtype=torch.int64, device=dist.device)
+    frontier = frontier.expand(dist.shape)   # an ADD frontier is shared
+    while True:
+        go = host_flags(frontier)   # the per-wave host sync
+        if not np.any(go):
+            return dist, parent, rounds, msgs
         dist, parent, frontier = wave(dist, parent, frontier)
-        msgs += frontier.sum()
-        rounds += 1
-    return dist, parent, rounds, msgs
+        msgs += frontier.sum(-1)
+        rounds += go
 
 
 def relax_until_converged(sssp: SSSPState, edges: EdgePool,
@@ -103,10 +140,14 @@ def relax_until_converged(sssp: SSSPState, edges: EdgePool,
 def mark_vertices(vertices: torch.Tensor, upd: torch.Tensor,
                   num_vertices: int) -> torch.Tensor:
     """bool[N] with ``vertices[i]`` set where ``upd[i]`` — the reference's
-    ``f.at[v].max(upd)``.  A max-reduce, not an assignment: a repeated
-    vertex whose copies disagree stays set, whatever the write order."""
-    f = torch.zeros(num_vertices, dtype=torch.uint8, device=vertices.device)
-    f.scatter_reduce_(0, vertices.long(), upd.to(torch.uint8), "amax")
+    ``f.at[v].max(upd)``; ``[S, N]`` where ``upd`` is ``[S, m]`` (one mask
+    per lane over the shared ids).  A max-reduce, not an assignment: a
+    repeated vertex whose copies disagree stays set, whatever the write
+    order."""
+    f = torch.zeros((*upd.shape[:-1], num_vertices), dtype=torch.uint8,
+                    device=vertices.device)
+    f.scatter_reduce_(-1, vertices.long().expand(upd.shape),
+                      upd.to(torch.uint8), "amax")
     return f.bool()
 
 

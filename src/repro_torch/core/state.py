@@ -50,11 +50,12 @@ class EdgePool:
 
 @dataclasses.dataclass
 class SSSPState:
-    """Per-vertex SSSP tree state."""
+    """Per-vertex SSSP tree state: one tree, or a stack of S trees (one per
+    maintained source, ``init_batched``) over the same graph."""
 
-    dist: torch.Tensor    # f32[N]; +inf == unreached
-    parent: torch.Tensor  # i32[N]; -1 == none (source or unreached)
-    source: torch.Tensor  # i32[] scalar
+    dist: torch.Tensor    # f32[N] or [S, N]; +inf == unreached
+    parent: torch.Tensor  # i32[N] or [S, N]; -1 == none (source or unreached)
+    source: torch.Tensor  # i32[] scalar, or i32[S]
 
     @staticmethod
     def init(num_vertices: int, source: int,
@@ -67,6 +68,21 @@ class SSSPState:
         return SSSPState(dist=dist, parent=parent,
                          source=torch.tensor(source, dtype=torch.int32,
                                              device=device))
+
+    @staticmethod
+    def init_batched(num_vertices: int, sources: tuple[int, ...],
+                     device: torch.device | str) -> "SSSPState":
+        """Stacked multi-source state: one [S, N] dist/parent pair per
+        maintained source, sharing the graph.  Row ``i`` is exactly
+        ``init(num_vertices, sources[i])``."""
+        srcs = torch.tensor(sources, dtype=torch.int32, device=device)
+        s = len(sources)
+        dist = torch.full((s, num_vertices), INF, dtype=torch.float32,
+                          device=device)
+        dist[torch.arange(s, device=device), srcs.long()] = 0.0
+        parent = torch.full((s, num_vertices), NO_PARENT, dtype=torch.int32,
+                            device=device)
+        return SSSPState(dist=dist, parent=parent, source=srcs)
 
 
 @dataclasses.dataclass

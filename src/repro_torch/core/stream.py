@@ -1,5 +1,5 @@
 """Event-stream plumbing for the dynamic engine (torch rendering of
-``repro.core.stream``, single-source, observability left out).
+``repro.core.stream``, observability left out).
 
 Everything that is *stream* logic rather than *epoch* logic lives here:
 
@@ -7,10 +7,15 @@ Everything that is *stream* logic rather than *epoch* logic lives here:
     dispatches ADD/DEL batches and QUERY markers;
   * the ``QueryResult`` record returned at every QUERY marker, with its
     wall-clock ``latency_s`` timed around the ``_snapshot`` readback;
+  * multi-source lane routing: an engine built with ``sources=(s0, s1,
+    ...)`` keeps stacked ``[S, N]`` trees; ``query(source=s)`` reads back
+    ONE lane, ``query()`` the whole stack, and QUERY markers carry their
+    requested source;
   * the round/message counters: rounds are host integers (the eager wave
     loops already read each wave's condition back), messages accumulate in
-    a device scalar read back only by ``n_messages`` / ``query()``;
-  * the paper's §5.4 predecessor-stability metric.
+    a device scalar read back only by ``n_messages`` / ``query()``; on a
+    batched engine both are per-lane ``[S]`` vectors;
+  * the paper's §5.4 predecessor-stability metric, scoped per source.
 
 Subclasses implement ``_ingest_adds`` / ``_ingest_dels`` / ``_snapshot``.
 """
@@ -28,27 +33,50 @@ from repro_torch.core import events as ev
 
 @dataclasses.dataclass
 class QueryResult:
-    dist: np.ndarray      # f32[N]
-    parent: np.ndarray    # i32[N]
+    dist: np.ndarray      # f32[N] (lane or single-source) or f32[S, N]
+    parent: np.ndarray    # i32 of the same shape
     latency_s: float      # wall-clock snapshot latency (timed in query())
     epoch_stats: dict[str, Any]
-    source: int | None = None
+    source: int | None = None   # the lane's source for a routed query
 
 
 class StreamEngineBase:
     """Host-side driver over device epochs; subclasses own the state."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device,
+                 sources: tuple[int, ...] | None = None) -> None:
+        # batched multi-source mode: ``sources`` is the tuple of maintained
+        # sources (None = single-source); ``_lane_of`` routes a query's
+        # source to its row of the stacked [S, N] state
+        self.sources = tuple(int(s) for s in sources) if sources else None
+        self._lane_of: dict[int, int] = {}
+        lanes: tuple[int, ...] = ()
+        if self.sources is not None:
+            if len(set(self.sources)) != len(self.sources):
+                raise ValueError(f"duplicate sources: {self.sources}")
+            self._lane_of = {s: i for i, s in enumerate(self.sources)}
+            lanes = (len(self.sources),)
         self.n_epochs = 0
         self.n_adds = 0
         self.n_dels = 0
-        self.n_rounds = 0
-        self._dev_messages = torch.zeros((), dtype=torch.int64, device=device)
-        self._last_parent: np.ndarray | None = None
+        self._rounds = np.zeros(lanes, np.int64) if lanes else 0
+        self._dev_messages = torch.zeros(lanes, dtype=torch.int64,
+                                         device=device)
+        # previous parent snapshot per stability scope (None = full state,
+        # a source id = that routed lane)
+        self._last_parent: dict[int | None, np.ndarray] = {}
 
     @property
-    def n_messages(self) -> int:
-        return int(self._dev_messages)
+    def n_rounds(self) -> int | np.ndarray:
+        """BSP rounds so far — an int, or i64[S] per source when batched."""
+        r = self._rounds
+        return r if isinstance(r, int) else r.copy()
+
+    @property
+    def n_messages(self) -> int | np.ndarray:
+        m = self._dev_messages
+        # a copy: on the CPU, .numpy() would alias the live counter
+        return int(m) if m.dim() == 0 else m.to("cpu", copy=True).numpy()
 
     def _stream_stats(self) -> dict[str, Any]:
         return {
@@ -59,13 +87,14 @@ class StreamEngineBase:
 
     def _accumulate_relax(self, stats) -> None:
         """Fold one relaxation epoch's ``RelaxStats`` (no host sync)."""
-        self.n_rounds += stats.rounds
+        self._rounds = self._rounds + stats.rounds
         self._dev_messages += stats.messages
 
     def _accumulate_delete(self, dstats) -> None:
         """Fold one deletion epoch's ``DeleteStats``; ``affected`` counts as
         messages (the SetToInfinity deliveries), as in the reference."""
-        self.n_rounds += dstats.invalidation_rounds + dstats.recompute_rounds
+        self._rounds = (self._rounds + dstats.invalidation_rounds
+                        + dstats.recompute_rounds)
         self._dev_messages += dstats.recompute_messages + dstats.affected
 
     def _deletion_groups(self, batch: ev.EventBatch
@@ -84,20 +113,54 @@ class StreamEngineBase:
     def _ingest_dels(self, batch: ev.EventBatch) -> None:
         raise NotImplementedError
 
-    def _snapshot(self) -> tuple[np.ndarray, np.ndarray]:
-        """Device->host readback of (dist, parent)."""
+    def _snapshot(self, lane: int | None) -> tuple[np.ndarray, np.ndarray]:
+        """Device->host readback of (dist, parent) — one lane of the
+        stacked state when ``lane`` is given, everything otherwise."""
         raise NotImplementedError
 
-    def query(self, source: int | None = None) -> QueryResult:
-        """State collection (paper §3): every batch already ran to
-        convergence, so the query cost is the device->host readback — timed
-        here as the result latency.  ``source`` may name the engine's own
-        source (or be None)."""
-        if source is not None and int(source) != int(self.cfg.source):
+    def serves(self, source: int) -> bool:
+        """Whether a routed ``query(source=...)`` would be answered from a
+        dedicated lane/tree of this engine."""
+        if self.sources is not None:
+            return source in self._lane_of
+        return int(source) == int(self.cfg.source)
+
+    def route_of(self, query_source: int) -> int | None:
+        """The stream-marker routing policy: a marker's source routes to
+        its lane on a batched engine that serves it; everything else
+        (``-1``, unserved sources, single-source engines) reads the full
+        state."""
+        if (query_source >= 0 and self.sources is not None
+                and self.serves(query_source)):
+            return query_source
+        return None
+
+    def lane_of(self, source: int) -> int:
+        """Row of the stacked [S, N] state serving ``source``."""
+        if self.sources is None:
+            raise ValueError("lane_of() on a single-source engine; construct "
+                             "with sources=(...) for batched serving")
+        if source not in self._lane_of:
             raise ValueError(f"source {source} is not served by this engine "
-                             f"(source={self.cfg.source})")
+                             f"(sources={self.sources})")
+        return self._lane_of[source]
+
+    def query(self, source: int | None = None) -> QueryResult:
+        """State collection (paper §3): the device->host readback of a
+        converged tree (a bucketed engine drains first) — timed here as the
+        result latency.  ``source`` routes the query to one maintained tree
+        of a batched engine (only that lane is read back); a single-source
+        engine accepts its own source or None."""
+        lane: int | None = None
+        if source is not None:
+            if self.sources is not None:
+                lane = self.lane_of(int(source))
+            elif int(source) != int(self.cfg.source):
+                raise ValueError(
+                    f"source {source} is not served by this engine "
+                    f"(source={self.cfg.source})")
         t0 = time.perf_counter()
-        dist, parent = self._snapshot()
+        dist, parent = self._snapshot(lane)
         dt = time.perf_counter() - t0
         return QueryResult(dist=dist, parent=parent, latency_s=dt,
                            epoch_stats=self._stream_stats(),
@@ -109,7 +172,8 @@ class StreamEngineBase:
         """Drive the engine over an event log (or an iterable of log chunks,
         ingested in order); returns the query results.  Any object with the
         ``EventLog.runs()`` interface is a log — the reference package's
-        logs included."""
+        logs included.  QUERY markers carrying a source are routed to that
+        lane on a batched engine (``route_of``)."""
         chunks = [log] if hasattr(log, "runs") else log
         results: list[QueryResult] = []
         for chunk in chunks:
@@ -119,17 +183,22 @@ class StreamEngineBase:
                 elif batch.kind == ev.DEL:
                     self._ingest_dels(batch)
                 else:
-                    res = self.query()
+                    res = self.query(source=self.route_of(batch.query_source))
                     results.append(res)
                     if on_query is not None:
                         on_query(res)
         return results
 
-    def stability_vs_prev(self, parent: np.ndarray) -> float:
+    def stability_vs_prev(self, parent: np.ndarray,
+                          source: int | None = None) -> float:
         """Paper §5.4: fraction of vertices whose predecessor is unchanged
-        since the previous call (over vertices present in both results; the
-        first call scores 1.0)."""
-        prev, self._last_parent = self._last_parent, parent.copy()
+        since the previous call (over vertices present in both results).
+        ``source`` scopes the comparison: pass ``QueryResult.source`` so a
+        routed lane's snapshot is only compared against the SAME lane's
+        previous one (the first observation of each scope scores 1.0)."""
+        key = None if source is None else int(source)
+        prev = self._last_parent.get(key)
+        self._last_parent[key] = parent.copy()
         if prev is None or prev.shape != parent.shape:
             return 1.0
         both = (prev >= 0) & (parent >= 0)

@@ -3,25 +3,31 @@ hand-written Hopper kernel ``csrc/fused_sliced_relax.cu``, the port of the
 Pallas TPU kernel ``repro.kernels.relax.fused.fused_sliced_relax``; plus the
 run-group helper and the TPU kernel's cost model, copied from that module.
 
-``fused_sliced_relax(dist, active, flat_idx, flat_w, osrc, odst, ow, *,
-widths, slice_rows, blocks) -> (best f32[R], arg i32[R])`` computes
-exactly ``fused_sliced_relax_ref`` (ref.py): the frontier-masked ELL lane
-over the flat buffer, the overflow COO lane and the lane combine in one
-call, ``arg = INT_MAX`` where nothing is finite.  Tensors on the CPU take
-that plain version; tensors on a CUDA device launch the kernel or raise —
-there is no fallback.  ``fused_sliced_relax.launches`` counts kernel
-launches (a plain integer; callers reset it to 0 to count one run).
+``fused_sliced_relax(dist, active, layout) -> (best f32[R], arg i32[R])``
+computes exactly ``fused_sliced_relax_ref`` (ref.py) over the layout's
+arrays: the frontier-masked ELL lane over the flat buffer, the overflow COO
+lane and the lane combine in one call, ``arg = INT_MAX`` where nothing is
+finite.  ``dist`` / ``active`` may be ``[S, N]``, S trees over the one
+layout: one launch serves all S lanes and gives ``[S, R]``, each lane what
+a single-lane call on it gives.  Tensors on the CPU take the plain
+version; tensors on a CUDA device launch the kernel or raise — there is no
+fallback.  ``fused_sliced_relax.launches`` counts kernel launches and
+``.lane_launches`` those of the lane form (plain integers; callers reset
+them to 0 to count one run).
 
 The TPU kernel makes one ``pallas_call`` per distinct-width run and rescans
 the whole overflow segment in each; the CUDA kernel reads the segment once
 per wave (one 64-bit ``atomicMin`` per live entry) and then covers all rows
 in one launch, one thread block per chunk of ``block_table`` — the
 layout's geometry, made on the host once per layout and kept on the device
-beside it (``SlicedEllState.blocks``).
+beside it with its sizes (``ChunkTable``, held by ``SlicedEllState``).
+The wrapper takes the table and every size from the layout object and
+refuses one whose table was made for other widths.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -64,12 +70,29 @@ def block_table(widths: tuple[int, ...] | list[int],
     return table.astype(np.int32).ravel()
 
 
-@functools.lru_cache(maxsize=16)
-def _layout_size(widths: tuple[int, ...], slice_rows: int) -> tuple[int, int]:
-    """(i32 words of ``block_table(widths, slice_rows)``, cells of the
-    layout), once per layout."""
-    return (block_table(widths, slice_rows).shape[0],
-            int(slice_offsets(widths, slice_rows)[-1]))
+@dataclasses.dataclass(frozen=True)
+class ChunkTable:
+    """K2's chunk table of one flat sliced layout with the sizes the kernel
+    is launched with, made once per layout (``build``) and kept beside it:
+    a wave does no host work or copy for it."""
+
+    blocks: torch.Tensor          # i32[4 * chunks], ``block_table``
+    widths: tuple[int, ...]       # the layout it was made for
+    slice_rows: int
+    rows: int                     # R = len(widths) * slice_rows
+    cells: int                    # L, cells of the flat buffer
+
+    @staticmethod
+    def build(widths: tuple[int, ...], slice_rows: int,
+              device: torch.device | str) -> "ChunkTable":
+        """The table of ``widths`` (kept as given: a layout that holds the
+        same tuple object matches it without a comparison)."""
+        return ChunkTable(
+            blocks=torch.tensor(block_table(widths, slice_rows),
+                                device=device),
+            widths=widths, slice_rows=slice_rows,
+            rows=len(widths) * slice_rows,
+            cells=int(slice_offsets(widths, slice_rows)[-1]))
 
 
 def slice_run_groups(widths: tuple[int, ...] | list[int],
@@ -109,79 +132,103 @@ def fused_cost(widths: tuple[int, ...] | list[int], slice_rows: int,
 
 
 def wave_bytes(num_vertices: int, cells: int, live_cells: int,
-               overflow_cap: int, live_overflow: int, rows: int) -> int:
+               overflow_cap: int, live_overflow: int, rows: int,
+               lanes: int = 1) -> int:
     """Bytes one K2 wave must move, each input read once and each output
-    written once, counted on the layout's own data: dist + active (5N),
-    every weight (4L + 4C), the index of each finite-weight cell and the
-    source and row of each finite-weight overflow entry (4 live_L +
+    written once, counted on the layout's own data: dist + active (5N per
+    lane), every weight (4L + 4C), the index of each finite-weight cell and
+    the source and row of each finite-weight overflow entry (4 live_L +
     8 live_C; a +inf weight makes its candidate +inf whatever the index
-    says), best + arg (8R).  With every entry live it is 5N + 8L + 12C +
-    8R."""
-    return (5 * num_vertices + 4 * cells + 4 * live_cells
-            + 4 * overflow_cap + 8 * live_overflow + 8 * rows)
+    says), best + arg (8R per lane).  The layout is shared by the lanes, so
+    it counts once whatever ``lanes`` is.  With every entry live and one
+    lane it is 5N + 8L + 12C + 8R."""
+    return (lanes * (5 * num_vertices + 8 * rows) + 4 * cells
+            + 4 * live_cells + 4 * overflow_cap + 8 * live_overflow)
 
 
 @functools.cache
-def launcher():
-    """The kernel's C launcher, built at first use and bound once per
-    process."""
+def launcher(lanes: bool = False):
+    """The kernel's C launcher (the lane form's with ``lanes``), built at
+    first use and bound once per process."""
+    if lanes:
+        return build.launcher(SOURCE, "fused_sliced_relax_lanes_launch",
+                              [ctypes.c_void_p] * 11
+                              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3)
     return build.launcher(SOURCE, "fused_sliced_relax_launch",
                           [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3
                           + [ctypes.c_int] * 2)
 
 
-def fused_sliced_relax(dist: torch.Tensor, active: torch.Tensor,
-                       flat_idx: torch.Tensor, flat_w: torch.Tensor,
-                       osrc: torch.Tensor, odst: torch.Tensor,
-                       ow: torch.Tensor, *, widths: tuple[int, ...],
-                       slice_rows: int, blocks: torch.Tensor
+def fused_sliced_relax(dist: torch.Tensor, active: torch.Tensor, layout
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One hybrid wave over ``R = len(widths) * slice_rows`` rows: the
-    flat buffer is laid out by ``sliced_geometry(widths, slice_rows)``,
-    ``blocks`` is ``block_table(widths, slice_rows)`` on the tensors'
-    device, and a row's overflow entries are those with ``odst == r``;
+    """One hybrid wave over the ``R`` rows of ``layout`` — a
+    ``SlicedEllState`` or any object with its ``flat_idx``, ``flat_w``,
+    ``osrc``, ``odst``, ``ow``, ``widths`` and ``table`` (the layout's
+    ``ChunkTable``): the flat buffer is laid out by ``sliced_geometry(widths,
+    slice_rows)`` and a row's overflow entries are those with ``odst == r``;
     cell and overflow sources index ``dist``, ``odst`` lies in [0, R).
-    ``active`` masks offer sources (all True for an unmasked pull wave).
-    Raises ``ValueError`` where ``flat_w`` or ``blocks`` is not the size
-    the layout gives, on any device; the kernel also skips a chunk that
-    would reach past the flat buffer or the rows."""
-    tensors = (dist, active, flat_idx, flat_w, osrc, odst, ow, blocks)
-    words, cells = _layout_size(tuple(widths), slice_rows)
-    if flat_w.shape[0] != cells or blocks.shape[0] != words:
+    ``active`` masks offer sources (all True for an unmasked pull wave);
+    ``dist`` and ``active`` are ``[N]`` or ``[S, N]`` (S lanes, one launch).
+    Raises ``ValueError``, on any device, where the layout has no table,
+    its table was made for other widths or another slice height, or its
+    flat buffer is not the table's size; the kernel also skips a chunk that would reach past the
+    flat buffer or the rows."""
+    t = layout.table
+    if t is None or t.slice_rows != layout.slice_rows or (
+            t.widths is not layout.widths
+            and t.widths != tuple(layout.widths)):
         raise ValueError(
-            f"fused_sliced_relax: the layout of {len(widths)} slices of "
-            f"{slice_rows} rows has {cells} cells and a {words}-word block "
-            f"table; got flat_w of {flat_w.shape[0]} and blocks of "
-            f"{blocks.shape[0]}")
-    if all(t.device.type == "cpu" for t in tensors):
+            "fused_sliced_relax: the layout's chunk table is missing or "
+            "was made for another layout")
+    flat_idx, flat_w = layout.flat_idx, layout.flat_w
+    osrc, odst, ow = layout.osrc, layout.odst, layout.ow
+    if flat_w.shape[0] != t.cells:
+        raise ValueError(
+            f"fused_sliced_relax: the layout of {len(t.widths)} slices of "
+            f"{t.slice_rows} rows has {t.cells} cells; got flat_w of "
+            f"{flat_w.shape[0]}")
+    tensors = (dist, active, flat_idx, flat_w, osrc, odst, ow, t.blocks)
+    if all(x.device.type == "cpu" for x in tensors):
         return fused_sliced_relax_ref(dist, active, flat_idx, flat_w, osrc,
-                                      odst, ow, widths=widths,
-                                      slice_rows=slice_rows)
+                                      odst, ow, widths=t.widths,
+                                      slice_rows=t.slice_rows)
     f32, i32 = torch.float32, torch.int32
     dev = build.check_args(
-        "fused_sliced_relax", dist=(dist, f32), active=(active, torch.bool),
-        flat_idx=(flat_idx, i32), flat_w=(flat_w, f32), osrc=(osrc, i32),
-        odst=(odst, i32), ow=(ow, f32), blocks=(blocks, i32))
-    rows = len(widths) * slice_rows
-    if (flat_idx.shape != flat_w.shape or dist.shape != active.shape
+        "fused_sliced_relax", flat_idx=(flat_idx, i32), flat_w=(flat_w, f32),
+        osrc=(osrc, i32), odst=(odst, i32), ow=(ow, f32),
+        blocks=(t.blocks, i32))
+    if (dist.device != dev or active.device != dev or dist.dtype != f32
+            or active.dtype != torch.bool or dist.dim() not in (1, 2)
+            or dist.shape != active.shape or not dist.is_contiguous()
+            or not active.is_contiguous()
+            or flat_idx.shape != flat_w.shape
             or not osrc.shape == odst.shape == ow.shape
-            or blocks.data_ptr() % 16):
+            or t.blocks.data_ptr() % 16):
         raise ValueError(
-            f"fused_sliced_relax: expected flat_idx = flat_w, dist = active "
-            f"and osrc = odst = ow shapes and a 16-byte aligned blocks "
-            f"table; got {[tuple(t.shape) for t in tensors]}")
-    best = torch.empty(rows, dtype=f32, device=dev)
-    arg = torch.empty(rows, dtype=i32, device=dev)
-    if rows == 0:
+            f"fused_sliced_relax: expected contiguous f32 dist and bool "
+            f"active of one shape, (N,) or (S, N), on {dev}, flat_idx = "
+            f"flat_w and osrc = odst = ow shapes and a 16-byte aligned "
+            f"table; got {[(tuple(x.shape), x.dtype, str(x.device)) for x in tensors]}")
+    lanes = dist.shape[:-1]
+    best = torch.empty((*lanes, t.rows), dtype=f32, device=dev)
+    arg = torch.empty((*lanes, t.rows), dtype=i32, device=dev)
+    if best.numel() == 0:
         return best, arg
-    key = torch.empty(rows, dtype=torch.int64, device=dev)
-    build.launch("fused_sliced_relax", launcher(), dev,
-                 *(t.data_ptr() for t in (dist, active, flat_idx, flat_w,
-                                          blocks, osrc, odst, ow, key, best,
-                                          arg)),
-                 rows, cells, ow.shape[0], words // 4, BLOCK_CELLS)
+    key = torch.empty(best.shape, dtype=torch.int64, device=dev)
+    ptrs = [x.data_ptr() for x in (dist, active, flat_idx, flat_w, t.blocks,
+                                   osrc, odst, ow, key, best, arg)]
+    words = t.blocks.shape[0]
+    if lanes:
+        build.launch("fused_sliced_relax", launcher(True), dev, *ptrs,
+                     t.rows, t.cells, ow.shape[0], dist.shape[-1],
+                     words // 4, BLOCK_CELLS, lanes[0])
+        fused_sliced_relax.lane_launches += 1
+    else:
+        build.launch("fused_sliced_relax", launcher(), dev, *ptrs,
+                     t.rows, t.cells, ow.shape[0], words // 4, BLOCK_CELLS)
     fused_sliced_relax.launches += 1
     return best, arg
 
 
 fused_sliced_relax.launches = 0
+fused_sliced_relax.lane_launches = 0

@@ -20,19 +20,20 @@ def relax_wave(dist: torch.Tensor, parent: torch.Tensor,
                nbr_idx: torch.Tensor, nbr_w: torch.Tensor, *,
                frontier: torch.Tensor | None = None, use_kernel: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One relaxation wave (frontier-masked when given).
+    """One relaxation wave (frontier-masked when given) of one tree
+    (``dist`` [N]) or of S lanes (``dist`` [S, N]) over the shared block.
 
     ``nbr_idx``/``nbr_w`` may have more rows than ``dist`` (the planner's
     row padding); the extra rows are all-+inf and are sliced off.
     ``use_kernel`` routes through the K1 wrapper (the CUDA kernel on a CUDA
-    tensor); False calls the plain version on any device.
-    Returns (dist', parent', improved).
+    tensor: one launch for all lanes); False calls the plain version on any
+    device.  Returns (dist', parent', improved).
     """
-    n = dist.shape[0]
+    n = dist.shape[-1]
     offers = dist if frontier is None else torch.where(frontier, dist, INF)
     fn = ellpack_relax if use_kernel else ellpack_relax_ref
     best, arg = fn(offers, nbr_idx, nbr_w)
-    best, arg = best[:n], arg[:n]
+    best, arg = best[..., :n], arg[..., :n]
     improved = best < dist
     return (torch.where(improved, best, dist),
             torch.where(improved, arg, parent), improved)

@@ -19,6 +19,11 @@ overflow_min)`` over ``offers = where(active, dist, inf)``; ``arg`` is
 INT_MAX where no candidate is finite.  The three lane functions live here
 and the sliced backend's unfused wave imports them.
 
+K1 and K2's plain versions also take a leading lane axis — ``offers`` /
+``dist`` / ``active`` (S, N), S trees over the one shared layout — and give
+(S, R), lane for lane what S single-lane calls give: the CPU route of the
+batched engine and the card's oracle for the kernels' lane forms.
+
 K3, ``gathered_rows_relax_ref``: the counterpart of
 ``repro.kernels.relax.gather.gathered_rows_relax_ref`` — candidates
 ``src_dist + w`` scatter-min'd into ``nbr`` rows, masked slots dropped,
@@ -38,19 +43,21 @@ _INF = float("inf")
 
 def ellpack_relax_ref(offers: torch.Tensor, nbr_idx: torch.Tensor,
                       nbr_w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    cand = offers[nbr_idx] + nbr_w                         # (R, K)
-    best = cand.amin(dim=1)
-    is_min = cand == best[:, None]
-    arg = torch.where(is_min, nbr_idx, _BIG).amin(dim=1)
+    cand = offers[..., nbr_idx] + nbr_w                    # ([S,] R, K)
+    best = cand.amin(dim=-1)
+    is_min = cand == best[..., None]
+    arg = torch.where(is_min, nbr_idx, _BIG).amin(dim=-1)
     arg = torch.where(torch.isfinite(best), arg, -1)
     return best, arg.to(torch.int32)
 
 
 def _segment_min(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
                  fill: float | int) -> torch.Tensor:
-    out = torch.full((num_segments,), fill, dtype=vals.dtype,
-                     device=vals.device)
-    return out.scatter_reduce_(0, seg.long(), vals, "amin", include_self=True)
+    """Per-segment min over the last axis (``seg`` shared by the lanes)."""
+    out = torch.full((*vals.shape[:-1], num_segments), fill,
+                     dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(-1, seg.long().expand_as(vals), vals, "amin",
+                               include_self=True)
 
 
 def sliced_gather_min(offers: torch.Tensor, flat_idx: torch.Tensor,
@@ -75,7 +82,7 @@ def sliced_gather_min(offers: torch.Tensor, flat_idx: torch.Tensor,
         bests.append(b)
         args_.append(a)
         off += rows_g * k
-    return torch.cat(bests), torch.cat(args_)
+    return torch.cat(bests, dim=-1), torch.cat(args_, dim=-1)
 
 
 def overflow_min(offers: torch.Tensor, osrc: torch.Tensor, odst: torch.Tensor,
@@ -83,9 +90,9 @@ def overflow_min(offers: torch.Tensor, osrc: torch.Tensor, odst: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The overflow lane: a scatter-min over the hub surplus, INT_MAX where
     a row gets no finite candidate.  ``odst`` holds row ids in [0, nrows)."""
-    ocand = offers[osrc] + ow              # +inf entries can never win
+    ocand = offers[..., osrc] + ow         # +inf entries can never win
     obest = _segment_min(ocand, odst, nrows, _INF)
-    ohit = (ocand == obest[odst]) & (ocand < _INF)
+    ohit = (ocand == obest[..., odst]) & (ocand < _INF)
     oarg = _segment_min(torch.where(ohit, osrc, _BIG), odst, nrows, _BIG)
     return obest, oarg
 
@@ -107,11 +114,12 @@ def fused_sliced_relax_ref(dist: torch.Tensor, active: torch.Tensor,
                            ow: torch.Tensor, *, widths: tuple[int, ...],
                            slice_rows: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(best f32[R], arg i32[R]) for R = len(widths) * slice_rows rows."""
+    """(best f32[R], arg i32[R]) for R = len(widths) * slice_rows rows
+    (``[S, R]`` for ``[S, N]`` dist and active)."""
     offers = torch.where(active, dist, _INF)
     best, arg = sliced_gather_min(offers, flat_idx, flat_w, widths=widths,
                                   slice_rows=slice_rows)
-    obest, oarg = overflow_min(offers, osrc, odst, ow, best.shape[0])
+    obest, oarg = overflow_min(offers, osrc, odst, ow, best.shape[-1])
     return combine_lanes(best, arg, obest, oarg)
 
 

@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card: kernels K1 (``ellpack_relax``, both
 variants), K2
 (``fused_sliced_relax``), K3 (``gathered_rows_relax``), K4 (``spmm_ell``)
-and K5 (``embedding_bag``) against their plain torch versions, and engines
-on the kernels against the same engines on the plain versions (dense ELL
-on K1; sliced on K2 and on K1 per run of slices; the sparse frontier on
-K3).  Every test here needs a CUDA device and skips without one (decided
+and K5 (``embedding_bag``) against their plain torch versions, K1's and
+K2's lane forms (S trees in one launch) against S single-lane kernel calls
+and the lane plain versions, and engines on the kernels against the same
+engines on the plain versions (dense ELL on K1; sliced on K2 and on K1 per
+run of slices; the sparse frontier on K3; batched multi-source and
+bucketed engines on the lane forms).  Every test here needs a CUDA device and skips without one (decided
 inside the test).  Tolerance: 0 — bit-identical — except the gradients of
 ``neighbor_reduce`` and ``bag_lookup``, whose backward scatters with
 ``index_add_``: on the card its atomics add in no fixed order, so the
@@ -16,6 +18,8 @@ machine that has only the port's requirements:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_kernels.py
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +31,7 @@ from repro_torch.graphs import csr
 from repro_torch.kernels.embed_bag.embed_bag import embedding_bag
 from repro_torch.kernels.embed_bag.ops import bag_lookup
 from repro_torch.kernels.embed_bag.ref import embedding_bag_ref
-from repro_torch.kernels.relax.fused import block_table, fused_sliced_relax
+from repro_torch.kernels.relax.fused import ChunkTable, fused_sliced_relax
 from repro_torch.kernels.relax.gather import gathered_rows_relax
 from repro_torch.kernels.relax.ref import (ellpack_relax_ref,
                                            fused_sliced_relax_ref,
@@ -188,9 +192,24 @@ def _k2_case(seed, widths, slice_rows, n, ocap, ties, active_frac, device):
         dist = np.floor(dist)
     active = rng.random(n) < active_frac
     t = [torch.from_numpy(a).to(device) for a in
-         (dist, active, flat_idx, flat_w, osrc, odst, ow,
-          block_table(widths, slice_rows))]
-    return t[:7], dict(widths=widths, slice_rows=slice_rows, blocks=t[7])
+         (dist, active, flat_idx, flat_w, osrc, odst, ow)]
+    return t[:2], _layout(*t[2:], widths, slice_rows)
+
+
+def _layout(flat_idx, flat_w, osrc, odst, ow, widths, slice_rows):
+    """The layout object K2's wrapper reads (the fields a SlicedEllState
+    holds for it), with the chunk table of its widths."""
+    return SimpleNamespace(
+        flat_idx=flat_idx, flat_w=flat_w, osrc=osrc, odst=odst, ow=ow,
+        widths=widths, slice_rows=slice_rows,
+        table=ChunkTable.build(widths, slice_rows, flat_w.device))
+
+
+def _k2_ref(dist, active, lay):
+    return fused_sliced_relax_ref(dist, active, lay.flat_idx, lay.flat_w,
+                                  lay.osrc, lay.odst, lay.ow,
+                                  widths=lay.widths,
+                                  slice_rows=lay.slice_rows)
 
 
 @pytest.mark.cuda
@@ -198,14 +217,13 @@ def _k2_case(seed, widths, slice_rows, n, ocap, ties, active_frac, device):
                          K2_SHAPES)
 def test_k2_matches_plain_version(cuda, widths, slice_rows, n, ocap, ties,
                                   active_frac):
-    args, kw = _k2_case(n + ocap, widths, slice_rows, n, ocap, ties,
-                        active_frac, cuda)
+    (dist, active), lay = _k2_case(n + ocap, widths, slice_rows, n, ocap,
+                                   ties, active_frac, cuda)
     before = fused_sliced_relax.launches
-    best, arg = fused_sliced_relax(*args, **kw)
+    best, arg = fused_sliced_relax(dist, active, lay)
     torch.cuda.synchronize()
     assert fused_sliced_relax.launches == before + 1
-    rb, ra = fused_sliced_relax_ref(*args, widths=widths,
-                                    slice_rows=slice_rows)
+    rb, ra = _k2_ref(dist, active, lay)
     assert torch.equal(best, rb) and torch.equal(arg, ra)
 
 
@@ -215,8 +233,9 @@ def test_k2_tombstones_padding_slices_and_dead_rows(cuda):
     padding only, rows with no live cell and a row count that ends inside
     a chunk, with every offer active and with none."""
     widths, slice_rows, n = (8, 4, 32, 1, 8), 64, 300
-    args, kw = _k2_case(9, widths, slice_rows, n, 32, True, 1.0, cuda)
-    flat_w = args[3].cpu().numpy()
+    (dist, active), lay = _k2_case(9, widths, slice_rows, n, 32, True, 1.0,
+                                   cuda)
+    flat_w = lay.flat_w.cpu().numpy()
     _, rowk, base, _ = csr.sliced_geometry(list(widths), slice_rows)
     for r in range(len(base)):
         cells = flat_w[base[r]:base[r] + rowk[r]]
@@ -227,27 +246,157 @@ def test_k2_tombstones_padding_slices_and_dead_rows(cuda):
         elif r % 7 == 2:                     # no live cell at all
             cells[:] = np.inf
     flat_w[base[slice_rows]:base[2 * slice_rows]] = np.inf   # a dead slice
-    args[3] = torch.from_numpy(flat_w).to(cuda)
-    for active in (args[1], torch.zeros_like(args[1])):
-        case = [*args[:1], active, *args[2:]]
-        best, arg = fused_sliced_relax(*case, **kw)
-        rb, ra = fused_sliced_relax_ref(*case, widths=widths,
-                                        slice_rows=slice_rows)
+    lay.flat_w = torch.from_numpy(flat_w).to(cuda)
+    for act in (active, torch.zeros_like(active)):
+        best, arg = fused_sliced_relax(dist, act, lay)
+        rb, ra = _k2_ref(dist, act, lay)
         assert torch.equal(best, rb) and torch.equal(arg, ra)
 
 
 @pytest.mark.cuda
 def test_k2_refuses_a_table_of_another_layout(cuda):
-    """A chunk table made for other widths raises before any launch."""
+    """A layout holding a chunk table made for other widths — of the same
+    size ((1, 4, 8, 32, 8) reorders the runs) or not — raises before any
+    launch."""
     widths, slice_rows = (8, 4, 32, 1, 8), 64
-    args, kw = _k2_case(3, widths, slice_rows, 300, 32, False, 1.0, cuda)
+    (dist, active), lay = _k2_case(3, widths, slice_rows, 300, 32, False,
+                                   1.0, cuda)
     before = fused_sliced_relax.launches
-    for other in ((8, 4, 32, 1, 8, 1), (1,) * 5, (32,) * 5):
-        kw["blocks"] = torch.from_numpy(block_table(other, slice_rows)).to(
-            cuda)
-        with pytest.raises(ValueError, match="block table"):
-            fused_sliced_relax(*args, **kw)
+    for other in ((8, 4, 32, 1, 8, 1), (1,) * 5, (32,) * 5, (1, 4, 8, 32, 8)):
+        lay.table = ChunkTable.build(other, slice_rows, cuda)
+        with pytest.raises(ValueError, match="another layout"):
+            fused_sliced_relax(dist, active, lay)
     assert fused_sliced_relax.launches == before
+
+
+# ------------------------------------------------- K1 and K2 lane forms --
+LANES = [1, 3, 4, 8]
+
+
+def _lanes_of(offers, s, seed, ties=False):
+    """S lanes of offers over one block: lane 0 is ``offers``, the others
+    are redrawn (+inf entries kept), and lane 1 is all +inf."""
+    rng = np.random.default_rng(seed)
+    n = offers.shape[0]
+    out = offers.unsqueeze(0).repeat(s, 1)
+    for t in range(1, s):
+        v = (rng.integers(0, 4, n) if ties else 4 * rng.random(n))
+        v = np.where(rng.random(n) < 0.3, np.inf, v).astype(np.float32)
+        out[t] = torch.from_numpy(v).to(offers.device)
+    if s > 1:
+        out[1] = float("inf")
+    return out
+
+
+def _k1_lanes_equal(offers, idx, w):
+    """One lane-form launch equals the lane plain version and, lane by
+    lane, a single-lane kernel call on that lane's offers."""
+    before = (ellpack_relax.launches, ellpack_relax.lane_launches)
+    best, arg = ellpack_relax(offers, idx, w)
+    torch.cuda.synchronize()
+    assert (ellpack_relax.launches, ellpack_relax.lane_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert best.shape == arg.shape == (offers.shape[0], idx.shape[0])
+    rb, ra = ellpack_relax_ref(offers, idx, w)
+    assert torch.equal(best, rb) and torch.equal(arg, ra)
+    for t in range(offers.shape[0]):
+        b1, a1 = ellpack_relax(offers[t].contiguous(), idx, w)
+        assert torch.equal(best[t], b1) and torch.equal(arg[t], a1)
+    return best, arg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("n,rows,k,offset,want", [
+    (5000, 4097, 32, 0, "vector"), (300, 256, 5, 0, "scalar"),
+    (900, 70, 128, 0, "vector"), (900, 33, 130, 0, "scalar"),
+    (500, 300, 32, 3, "scalar"), (1 << 16, 1 << 16, 32, 0, "vector")])
+def test_k1_lanes_match_single_lane_calls(cuda, lanes, n, rows, k, offset,
+                                          want):
+    """K1's lane form, both variants (a view at an odd cell offset takes
+    the scalar one): +inf rows, ties, an all-+inf lane."""
+    offers, idx, w = _case(n + k + lanes, n, rows, k, True, cuda, tail=True)
+    if offset:
+        flat_i = idx.new_zeros(offset + idx.numel())
+        flat_w = w.new_zeros(offset + w.numel())
+        flat_i[offset:], flat_w[offset:] = idx.reshape(-1), w.reshape(-1)
+        idx = flat_i[offset:].view(rows, k)
+        w = flat_w[offset:].view(rows, k)
+    assert variant(idx, w) == want
+    best, arg = _k1_lanes_equal(_lanes_of(offers, lanes, lanes, ties=True),
+                                idx, w)
+    if lanes > 1:
+        assert bool(torch.isinf(best[1]).all()) and bool((arg[1] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("case", [0, 3, 4, 6, 10])
+def test_k2_lanes_match_single_lane_calls(cuda, lanes, case):
+    """K2's lane form at the K2_SHAPES geometries: each lane its own dist
+    and active mask (lane 1 all inactive, lane 2 all +inf), against the
+    lane plain version and S single-lane kernel calls."""
+    widths, slice_rows, n, ocap, ties, frac = K2_SHAPES[case]
+    (dist, active), lay = _k2_case(case + lanes, widths, slice_rows, n,
+                                   ocap, ties, frac, cuda)
+    rng = np.random.default_rng(lanes)
+    dist = _lanes_of(dist, lanes, case, ties=ties)
+    if lanes > 2:
+        dist[2] = float("inf")
+    act = torch.from_numpy(rng.random((lanes, n)) < frac).to(cuda)
+    act[0] = active
+    if lanes > 1:
+        act[1] = False
+    before = (fused_sliced_relax.launches, fused_sliced_relax.lane_launches)
+    best, arg = fused_sliced_relax(dist, act, lay)
+    torch.cuda.synchronize()
+    assert (fused_sliced_relax.launches, fused_sliced_relax.lane_launches) \
+        == (before[0] + 1, before[1] + 1)
+    rb, ra = _k2_ref(dist, act, lay)
+    assert torch.equal(best, rb) and torch.equal(arg, ra)
+    for t in range(lanes):
+        b1, a1 = fused_sliced_relax(dist[t].contiguous(),
+                                    act[t].contiguous(), lay)
+        assert torch.equal(best[t], b1) and torch.equal(arg[t], a1)
+    if lanes > 1:
+        assert bool(torch.isinf(best[1]).all())
+        assert bool((arg[1] == 2**31 - 1).all())
+
+
+@pytest.mark.cuda
+def test_lane_forms_repeated_and_in_a_cuda_graph(cuda):
+    """K1's and K2's lane forms called twice in a row, then captured in a
+    CUDA graph and replayed on new inputs written in place: every result
+    equals the lane plain version of the inputs of the moment (K2's key
+    scratch is reset for every lane in every call)."""
+    offers, idx, w = _case(7, 3000, 2048, 32, True, cuda, tail=True)
+    offers = _lanes_of(offers, 4, 7, ties=True)
+    (dist, active), lay = _k2_case(8, *K2_SHAPES[4][:5], 1.0, cuda)
+    dist = _lanes_of(dist, 4, 8, ties=True)
+    active = active.unsqueeze(0).repeat(4, 1)
+    for _ in range(2):
+        _k1_lanes_equal(offers, idx, w)
+        got = fused_sliced_relax(dist, active, lay)
+        assert all(map(torch.equal, got, _k2_ref(dist, active, lay)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ellpack_relax(offers, idx, w)
+        fused_sliced_relax(dist, active, lay)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        k1 = ellpack_relax(offers, idx, w)
+        k2 = fused_sliced_relax(dist, active, lay)
+    rng = np.random.default_rng(9)
+    for seed in (10, 11):
+        offers.copy_(_lanes_of(offers[0].flip(0), 4, seed, ties=True))
+        dist.copy_(_lanes_of(dist[3].flip(0), 4, seed, ties=True))
+        active.copy_(torch.from_numpy(rng.random(active.shape) < 0.6))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, k1, ellpack_relax_ref(offers, idx, w)))
+        assert all(map(torch.equal, k2, _k2_ref(dist, active, lay)))
 
 
 def _k3_case(seed, e, n, ties, mask_frac, device, hub=False, dup=False):
@@ -353,10 +502,9 @@ def test_k3_in_a_cuda_graph(cuda):
 
 @pytest.mark.cuda
 def test_k2_k3_refuse_wrong_dtype_on_the_card(cuda):
-    args, kw = _k2_case(1, (2, 2), 8, 16, 8, False, 1.0, cuda)
-    args[1] = args[1].to(torch.uint8)
+    (dist, active), lay = _k2_case(1, (2, 2), 8, 16, 8, False, 1.0, cuda)
     with pytest.raises(ValueError, match="active"):
-        fused_sliced_relax(*args, **kw)
+        fused_sliced_relax(dist, active.to(torch.uint8), lay)
     args = _k3_case(1, 16, 8, False, 1.0, cuda)
     args[1] = args[1].long()
     with pytest.raises(ValueError, match="src_ids"):
@@ -622,3 +770,47 @@ def test_sparse_engine_on_k3_matches_plain_version(cuda):
                        **kw)
     assert launched > 0 and plain == 0
     _same_runs(got, want)
+
+
+def _same_lane_runs(got, want):
+    """Query results of batched engines: arrays and per-lane counters."""
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.dist, b.dist)
+        np.testing.assert_array_equal(a.parent, b.parent)
+        assert a.epoch_stats.keys() == b.epoch_stats.keys()
+        for k in a.epoch_stats:
+            np.testing.assert_array_equal(a.epoch_stats[k], b.epoch_stats[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["rounds", "buckets"])
+@pytest.mark.parametrize("backend,knobs,kernel", [
+    ("ellpack", dict(ell_init_k=2), ellpack_relax),
+    ("sliced", dict(sliced_slice_rows=32, sliced_hub_k=8), fused_sliced_relax),
+    ("sliced", dict(sliced_slice_rows=32, sliced_hub_k=8,
+                    sliced_fused=False, ell_use_kernel=True), ellpack_relax)],
+    ids=["ellpack-K1", "sliced-K2", "sliced-K1-runs"])
+def test_batched_engines_on_lane_forms_match_plain_version(
+        cuda, schedule, backend, knobs, kernel):
+    """Three lanes (``sources=``) on the card's kernels launch the lane
+    forms and equal the same engine on the plain versions, lane for lane
+    and counter for counter, under both schedules."""
+    n, cap, log = _rmat_stream()
+    kw = dict(relax_backend=backend, sources=(3, 17, 40), **knobs)
+    if schedule == "buckets":
+        kw.update(wave_schedule="buckets", bucket_width=1.0)
+    before = kernel.lane_launches
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, **kw)
+    got = eng.ingest_log(log)
+    assert kernel.lane_launches > before
+    plain = {**kw, "ell_use_kernel": False}
+    if backend == "sliced":
+        plain["sliced_fused"] = False
+    before = (ellpack_relax.launches, fused_sliced_relax.launches)
+    ref = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, **plain)
+    want = ref.ingest_log(log)
+    assert (ellpack_relax.launches, fused_sliced_relax.launches) == before
+    _same_lane_runs(got, want)

@@ -14,6 +14,7 @@ Inputs are made from seeds with numpy and fed to both packages.  Tolerance:
 the plain version on the card by test_torch_cuda_kernels.py.
 """
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -78,6 +79,16 @@ def _jax_unfused(offers, flat_idx, flat_w, osrc, odst, ow, widths,
     return np.asarray(b), np.asarray(a)
 
 
+def _flat_layout(flat_idx, flat_w, osrc, odst, ow, widths, slice_rows,
+                 table=None):
+    """The layout object K2's wrapper reads (a ``SlicedEllState`` holds the
+    same fields), with the table of its own widths unless one is given."""
+    return SimpleNamespace(
+        flat_idx=flat_idx, flat_w=flat_w, osrc=osrc, odst=odst, ow=ow,
+        widths=widths, slice_rows=slice_rows,
+        table=table or fused.ChunkTable.build(widths, slice_rows, "cpu"))
+
+
 def _port(dist, active, flat_idx, flat_w, osrc, odst, ow, widths,
           slice_rows):
     """The plain version, and the wrapper on CPU tensors (which must take
@@ -86,9 +97,8 @@ def _port(dist, active, flat_idx, flat_w, osrc, odst, ow, widths,
          (dist, active, flat_idx, flat_w, osrc, odst, ow)]
     b, a = fused_sliced_relax_ref(*t, widths=widths, slice_rows=slice_rows)
     before = fused.fused_sliced_relax.launches
-    wb, wa = fused.fused_sliced_relax(
-        *t, widths=widths, slice_rows=slice_rows,
-        blocks=torch.from_numpy(fused.block_table(widths, slice_rows)))
+    wb, wa = fused.fused_sliced_relax(t[0], t[1],
+                                      _flat_layout(*t[2:], widths, slice_rows))
     assert fused.fused_sliced_relax.launches == before   # CPU: no launch
     assert torch.equal(b, wb) and torch.equal(a, wa)
     assert b.dtype == torch.float32 and a.dtype == torch.int32
@@ -234,25 +244,34 @@ def test_block_table_covers_the_sliced_geometry(widths, sr):
 
 @pytest.mark.parametrize("widths,sr", [((2, 2, 2), 8), ((4, 32, 1), 16)])
 def test_wrapper_refuses_a_table_of_another_layout(widths, sr):
-    """The wrapper holds ``blocks`` and ``flat_w`` to the size the layout
-    gives, on the CPU as on the card: a table made for other widths or
-    another slice height, or a flat buffer of another length, raises."""
+    """The wrapper takes the chunk table and its sizes from the layout
+    object and holds them to it, on the CPU as on the card: a layout
+    holding a table made for other widths — of the same size or not — or
+    for another slice height, a layout with no table, and a flat buffer of
+    another length raise."""
     n = 40
     L = sr * sum(widths)
     t = [torch.zeros(n), torch.ones(n, dtype=torch.bool),
          torch.zeros(L, dtype=torch.int32), torch.full((L,), INF),
          torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
          torch.full((4,), INF)]
-    kw = dict(widths=widths, slice_rows=sr)
-    good = torch.from_numpy(fused.block_table(widths, sr))
-    fused.fused_sliced_relax(*t, **kw, blocks=good)
-    others = (fused.block_table((1,) + widths, sr),
-              fused.block_table((1, 2) * len(widths), sr),
-              fused.block_table(widths, 64 * sr), good.numpy()[:-4])
-    for other in others:
-        with pytest.raises(ValueError, match="block table"):
-            fused.fused_sliced_relax(*t, **kw,
-                                     blocks=torch.from_numpy(other))
-    short = [*t[:2], t[2][:-1], t[3][:-1], *t[4:]]
+    lay = _flat_layout(*t[2:], widths, sr)
+    fused.fused_sliced_relax(t[0], t[1], lay)
+    # an equal tuple that is not the layout's own object is still its table
+    equal = _flat_layout(*t[2:], tuple(list(widths)), sr, table=lay.table)
+    fused.fused_sliced_relax(t[0], t[1], equal)
+    others = [((1,) + widths, sr), ((1, 2) * len(widths), sr),
+              (widths, 64 * sr)]
+    if widths[::-1] != widths:   # the same size, another layout
+        others.append((widths[::-1], sr))
+    for ow, osr in others:
+        bad = _flat_layout(*t[2:], widths, sr,
+                           table=fused.ChunkTable.build(ow, osr, "cpu"))
+        with pytest.raises(ValueError, match="another layout"):
+            fused.fused_sliced_relax(t[0], t[1], bad)
+    lay.table = None
+    with pytest.raises(ValueError, match="table"):
+        fused.fused_sliced_relax(t[0], t[1], lay)
+    short = _flat_layout(t[2][:-1], t[3][:-1], *t[4:], widths, sr)
     with pytest.raises(ValueError, match="cells"):
-        fused.fused_sliced_relax(*short, **kw, blocks=good)
+        fused.fused_sliced_relax(t[0], t[1], short)

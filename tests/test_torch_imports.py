@@ -30,6 +30,7 @@ print(" ".join(names))
 
 # modules that later slices added: each must be among those walked
 SLICE_MODULES = ("repro_torch.core.backends.sliced",
+                 "repro_torch.core.buckets",
                  "repro_torch.core.frontier",
                  "repro_torch.kernels.relax.fused",
                  "repro_torch.kernels.relax.gather",

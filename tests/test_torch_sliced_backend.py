@@ -168,11 +168,13 @@ def test_sliced_epochs_match_reference(use_kernel, use_fused):
     jstate = jpl.rebuild(src, dst, w)
     assert pl.widths == jpl.widths and pl.ofill > 0
     geo = dict(widths=tuple(pl.widths), slice_rows=pl.sr, num_vertices=n)
+    assert (state.widths, state.slice_rows) == (geo["widths"], pl.sr)
     s, js = SSSPState.init(n, SOURCE, "cpu"), JState.init(n, SOURCE)
     f = np.zeros(n, bool)
     f[SOURCE] = True
     s, st = sl.sliced_relax_until_converged(
-        s, state, *_t(f), use_kernel=use_kernel, use_fused=use_fused, **geo)
+        s, state, *_t(f), use_kernel=use_kernel, use_fused=use_fused,
+        num_vertices=n)
     js, jst = jsl.sliced_relax_until_converged(js, jstate, *_j(f), **geo)
     np.testing.assert_array_equal(s.dist.numpy(), np.asarray(js.dist))
     np.testing.assert_array_equal(s.parent.numpy(), np.asarray(js.parent))
@@ -190,7 +192,7 @@ def test_sliced_epochs_match_reference(use_kernel, use_fused):
     for use_doubling in (False, True):
         s2, d2 = sl.sliced_invalidate_and_recompute(
             s, state, seed_t, use_doubling=use_doubling,
-            use_kernel=use_kernel, use_fused=use_fused, **geo)
+            use_kernel=use_kernel, use_fused=use_fused, num_vertices=n)
         js2, jd2 = jsl.sliced_invalidate_and_recompute(
             js, jstate, jseed, use_doubling=use_doubling, **geo)
         np.testing.assert_array_equal(s2.dist.numpy(), np.asarray(js2.dist))
@@ -388,25 +390,33 @@ def test_unset_sliced_fused_validates_as_unset(backend):
 
 
 def test_state_block_table_follows_the_layout():
-    """``SlicedEllState.blocks`` is K2's chunk table of the planner's
-    current widths, made with ``base``/``rowk`` at every (re)build of a
-    state for K2, and not made for any other (the sparse frontier's
-    sidecar, the unfused backend)."""
+    """``SlicedEllState.table`` is K2's chunk table of the planner's
+    current widths with the layout's sizes, made with ``base``/``rowk`` at
+    every (re)build of a state for K2 and held beside the state's own
+    geometry, and not made for any other (the sparse frontier's sidecar,
+    the unfused backend)."""
     from repro_torch.kernels.relax import fused
     n, src, dst, w = jgen.rmat(8, 6, seed=4)
     pl = sl.SlicedEllPlanner(n, slice_rows=16, hub_k=32)
-    for arrays in (pl.empty_host(), pl.rebuild_host(src, dst, w),
-                   pl.rebuild_host(src[::2], dst[::2], w[::2])):
+    stale = pl.empty_host()
+    for make in (pl.empty_host, lambda: pl.rebuild_host(src, dst, w),
+                 lambda: pl.rebuild_host(src[::2], dst[::2], w[::2])):
+        arrays = make()
         state = sl.SlicedEllState.from_host(pl, arrays, "cpu")
-        np.testing.assert_array_equal(state.blocks.numpy(),
+        np.testing.assert_array_equal(state.table.blocks.numpy(),
                                       fused.block_table(pl.widths, pl.sr))
+        assert state.table.widths is state.widths == tuple(pl.widths)
+        assert (state.table.cells, state.table.rows) == (
+            state.flat_w.shape[0], state.fill.shape[0])
         np.testing.assert_array_equal(state.base.numpy(), pl.base)
         assert sl.SlicedEllState.from_host(
-            pl, arrays, "cpu", with_blocks=False).blocks is None
+            pl, arrays, "cpu", with_blocks=False).table is None
     assert len(set(pl.widths)) > 1
+    with pytest.raises(ValueError, match="geometry|cells"):
+        sl.SlicedEllState.from_host(pl, stale, "cpu")   # an earlier layout
     cfg = EngineConfig(n, 64, 0, relax_backend="sliced", device="cpu",
                        sliced_slice_rows=16)
     for use_fused in (False, True):
         be = sl.SlicedBackend(cfg, n, use_fused=use_fused)
-        assert (be.state.blocks is not None) == use_fused
-    assert OutAdjacency(n, "cpu").state.blocks is None
+        assert (be.state.table is not None) == use_fused
+    assert OutAdjacency(n, "cpu").state.table is None
