@@ -84,11 +84,31 @@ Phases (any failure raises and exits non-zero):
      segment, ellpack, sliced unfused, auto and the sparse frontier, under
      rounds and buckets, each lane equal to a single-source engine at
      every query; ``sparse_drain`` on K3 against the plain version;
+  12. the serving path with observability: phase 8's cut of the ER stream
+     lifted into a ``ServingTrace`` and replayed (``replay_trace``) on the
+     dense ELL block (K1), observability off and then on with a default
+     watchdog armed — bit-identical to each other and to phase 3
+     at every query (dist, parent, rounds, messages); the snapshot's views
+     agree (rounds and messages, span counts from the Chrome trace read
+     back against the epoch and rebuild counters, histogram totals against
+     their counters, the Prometheus text round trip), the watchdog stays
+     silent; the on / off events/s ratio (printed, not held), the
+     report's latency percentiles, churn and cold/warm split, and the
+     snapshot's time; the same trace written as a chunked v2 file (chunks
+     of 2^20 events) and replayed through ``open_trace``: dist equal at
+     every query, Dijkstra at the end; phase 8's RMAT(20) cut under auto
+     and buckets (K2), observability on: equal to phase 8's run at every
+     query, non-zero pending occupancy, ``drain_waves`` equal to the
+     drains' waves; phase 6's localized stream, sparse (K3), observability
+     off and then on: bit-identical, the on / off events/s ratio over its
+     96 short epochs (printed, not held), ``frontier_occupancy`` equal to
+     the sum of the ladder counts the waves read.  K1-K3 counts set to 0 before each leg, printed after;
   11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
-     with a ``lanes`` record of their lane forms), and as the last line
-     ``{"ok": true, "device": {...}}``.  Phases run in the order 1-6,
-     8-10, 7.
+     with a ``lanes`` record of their lane forms; K1-K3 with
+     ``serving_launches``, their counts in phase 12's legs), and as the
+     last line ``{"ok": true, "device": {...}}``.  Phases run in the order
+     1-6, 8-10, 12, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -1226,6 +1246,7 @@ def buckets_legs(torch, ctx) -> None:
               f"bit-identical to the rounds run at all {len(res)} queries "
               f"(parent too at {parents}); final snapshot passes Dijkstra "
               f"({reached} reached)")
+        c["buckets"] = res     # phase 12's RMAT leg is held against it
         del eng, res, q
 
 
@@ -1390,6 +1411,260 @@ def lanes_cross_check(torch) -> None:
     print(f"[10] sparse_drain on K3 (launches {l3}) identical to the plain "
           f"version at all {len(got)} queries; phase 10 in "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+# --------------------- phase 12: the serving path with observability --
+def same_answers(label, got, want, *, stats=True) -> None:
+    """Replay answers (dist, parent, epoch stats) against a phase's query
+    results, query by query."""
+    assert len(got) == len(want), f"{label}: {len(got)} vs {len(want)}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert np.array_equal(a.dist, b.dist), f"{label}: dist at query {i}"
+        if stats:
+            assert np.array_equal(a.parent, b.parent) and \
+                a.epoch_stats["rounds"] == b.epoch_stats["rounds"] and \
+                a.epoch_stats["messages"] == b.epoch_stats["messages"], \
+                f"{label}: parent or counters at query {i}"
+
+
+def snapshot_views(torch, eng, tmp: Path) -> tuple[dict, float]:
+    """An instrumented engine's ``metrics_snapshot`` (timed) and the checks
+    that its views agree: rounds and messages with the engine's, span
+    counts (Chrome trace written and read back) with the epoch and rebuild
+    counters, every histogram total with the counter it shadows, the
+    Prometheus text round trip."""
+    from repro_torch.obs import load_chrome_trace, span_counts_of
+    from repro_torch.obs.export import parse_prometheus_text, prometheus_text
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = eng.metrics_snapshot()
+    snap_s = time.perf_counter() - t0
+    ct, h = snap["counters"], snap["histograms"]
+    assert snap["rounds"] == eng.n_rounds
+    assert snap["messages"] == eng.n_messages
+    path = tmp / "spans.chrome.json"
+    eng.obs.tracer.save_chrome(str(path))
+    spans = span_counts_of(load_chrome_trace(str(path)))
+    assert spans == snap["spans"]
+    for kind, plural in (("add_epoch", "add_epochs"),
+                         ("del_epoch", "del_epochs"), ("query", "queries"),
+                         ("drain", "drains"), ("rebuild", "rebuilds")):
+        assert spans.get(kind, 0) == ct.get(plural, 0), (kind, spans, ct)
+    assert h["latency_us"]["count"] == ct["queries"]
+    assert h["frontier_occupancy"]["count"] == ct["add_epochs"]
+    dels = ct.get("del_epochs", 0)
+    epochs = (dels + ct["drains"] if "drains" in ct
+              else ct["add_epochs"] + dels)
+    assert h["waves_per_epoch"]["count"] == epochs
+    assert h["messages_per_epoch"]["count"] == epochs
+    for kind, plural in (("add_epoch", "add_epochs"),
+                         ("del_epoch", "del_epochs"), ("query", "queries")):
+        assert h.get(f"{kind}_wall_us", {"count": 0})["count"] == \
+            ct.get(plural, 0)
+    parsed = parse_prometheus_text(prometheus_text(snap))
+    for name, value in ct.items():
+        if np.ndim(value) == 0:
+            assert parsed[f"repro_{name}"][()] == float(value), name
+    assert parsed["repro_hist_latency_us_count"][()] == ct["queries"]
+    return snap, snap_s
+
+
+def serving_legs(torch, ctx) -> dict:
+    """Phase 12: the serving path (``replay_trace``) with observability on,
+    over the cuts of phases 8-9 (``leg_stream``) and phase 6's localized
+    stream.  Returns each of K1-K3's launches in its leg."""
+    import tempfile
+
+    import repro_torch
+    from repro_torch.core import buckets as buckets_mod
+    from repro_torch.core import events as ev
+    from repro_torch.core import frontier as frontier_mod
+    from repro_torch.graphs import generators
+    from repro_torch.kernels.relax import fused as k2
+    from repro_torch.kernels.relax import gather as k3
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.obs import WatchdogConfig
+    from repro_torch.serving import ServingTrace, open_trace, replay_trace
+    t_phase = time.perf_counter()
+    kernels = (k1.ellpack_relax, k2.fused_sliced_relax,
+               k3.gathered_rows_relax)
+
+    def replay(eng, trace, label):
+        """Launch counts reset, the replay, its answers and launches."""
+        for fn in kernels:
+            fn.launches = 0
+        seen = []
+        rep = replay_trace(eng, trace, on_query=seen.append)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in kernels]
+        print(f"[12] {label}: {rep.events_per_s:.0f} topology events/s "
+              f"({rep.topology_events} in {rep.wall_s:.2f} s), "
+              f"{rep.queries} queries; K1/K2/K3 launches {counts}")
+        return rep, seen, counts
+
+    served = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- ER on K1: obs off, then on (watchdog armed); then chunked
+        c = ctx["er"]
+        n, e, source = c["n"], c["e"], c["sources"][0]
+        log, want, _ = leg_stream(c)
+        trace = ServingTrace.from_log(log)
+        reps = {}
+        for obs in (False, True):
+            extra = dict(observability=True, obs_watchdog=WatchdogConfig()
+                         ) if obs else {}
+            eng = engine(n, e, source, relax_backend="ellpack", **extra)
+            rep, seen, counts = replay(
+                eng, trace, f"ER dense-ELL (K1), obs {'on' if obs else 'off'}")
+            assert counts[0] > 0, "[12] the ER leg never launched K1"
+            same_answers(f"[12] ER obs={obs}", seen, want)
+            reps[obs] = rep
+        served["ellpack_relax"] = counts[0]
+        eng.obs.watchdog.stop()
+        assert eng.obs.watchdog.warnings == 0, \
+            "[12] the watchdog spoke on a healthy run"
+        snap, snap_s = snapshot_views(torch, eng, tmp)
+        assert "watchdog_warnings" not in snap["counters"]
+        on, off = reps[True], reps[False]
+        cw = on.cold_warm
+        print(f"[12] ER obs on / off: {on.events_per_s:.0f} / "
+              f"{off.events_per_s:.0f} topology events/s, ratio "
+              f"{on.events_per_s / off.events_per_s:.3f} (printed, not "
+              f"held: host walls drift between runs); bit-identical at all "
+              f"{on.queries} queries (dist, parent, rounds, messages, and "
+              f"equal to phase 3's run)")
+        print(f"[12] ER ServingReport (obs on): latency p50/p95/p99 "
+              f"{on.latency_s['p50'] * 1e3:.3f}/"
+              f"{on.latency_s['p95'] * 1e3:.3f}/"
+              f"{on.latency_s['p99'] * 1e3:.3f} ms, churn mean "
+              f"{on.churn_mean['any']:.6f} (dist {on.churn_mean['dist']:.6f},"
+              f" parent {on.churn_mean['parent']:.6f}), cold/warm "
+              f"{int(cw['cold_queries'])}/{int(cw['warm_queries'])} (cold p50"
+              f" {cw['cold_p50_ms']:.3f} ms, warm p50/p99 "
+              f"{cw['warm_p50_ms']:.3f}/{cw['warm_p99_ms']:.3f} ms); "
+              f"metrics_snapshot {snap_s * 1e3:.3f} ms; spans "
+              f"{snap['spans']}; watchdog silent")
+        del eng, reps, on, off, snap
+        path = tmp / "er.trace"
+        t0 = time.perf_counter()
+        trace.save(str(path), chunk_events=1 << 20)   # ChunkedTraceWriter
+        write_s = time.perf_counter() - t0
+        eng = engine(n, e, source, relax_backend="ellpack",
+                     observability=True)
+        with open_trace(str(path)) as reader:
+            chunks = reader.n_chunks
+            rep, seen, counts = replay(eng, reader, f"ER from the v2 file "
+                                       f"({chunks} chunks of 2^20 events)")
+        same_answers("[12] ER chunked", seen, want, stats=False)
+        q = seen[-1]
+        reached = snapshot_check(n, source, *eng.alloc.active_coo(), q.dist,
+                                 q.parent)
+        print(f"[12] chunked replay: written in {write_s:.2f} s "
+              f"({path.stat().st_size / 1e6:.1f} MB), dist equal to phase "
+              f"3's at all {len(seen)} queries, final snapshot passes "
+              f"Dijkstra ({reached} reached)")
+        del eng, seen, trace, q
+
+        # ---- RMAT(20) on K2: auto, buckets, obs on
+        c = ctx["rmat"]
+        n, e, source = c["n"], c["e"], c["sources"][0]
+        log = leg_stream(c)[0]
+        waves = []
+        real_drain = buckets_mod.run_drain
+
+        def counted_drain(*a, **k):
+            out = real_drain(*a, **k)
+            waves.append(int(np.sum(out[2].rounds)))
+            return out
+
+        buckets_mod.run_drain = counted_drain
+        try:
+            eng = engine(n, e, source, relax_backend="auto",
+                         wave_schedule="buckets", bucket_width=1.0,
+                         observability=True)
+            rep, seen, counts = replay(eng, ServingTrace.from_log(log),
+                                       "RMAT(20) auto (K2), buckets, obs on")
+        finally:
+            buckets_mod.run_drain = real_drain
+        assert counts[1] > 0, "[12] the RMAT leg never launched K2"
+        served["fused_sliced_relax"] = counts[1]
+        same_answers("[12] RMAT buckets", seen, c["buckets"])
+        snap, snap_s = snapshot_views(torch, eng, tmp)
+        ct = snap["counters"]
+        assert ct["pending_push"] > 0 and ct["pending_pull"] > 0, ct
+        assert ct["drain_waves"] == sum(waves) > 0, (ct["drain_waves"],
+                                                      sum(waves))
+        print(f"[12] RMAT: dist, parent and counters equal to phase 8's "
+              f"buckets run at all {len(seen)} queries; pending at drain "
+              f"entry push {ct['pending_push']} / pull {ct['pending_pull']},"
+              f" drain_waves {ct['drain_waves']} = the {len(waves)} drains' "
+              f"waves; rebuilds {ct.get('rebuilds', 0)}, overflow hits "
+              f"{ct.get('overflow_hits', 0)}; latency p50/p99 "
+              f"{rep.latency_s['p50'] * 1e3:.3f}/"
+              f"{rep.latency_s['p99'] * 1e3:.3f} ms; metrics_snapshot "
+              f"{snap_s * 1e3:.3f} ms")
+        del eng, seen, snap
+
+        # ---- the sparse leg on K3: phase 6's localized stream, obs off
+        # then on; 96 epochs in about a second, so a per-epoch cost of the
+        # hooks shows here where the ER leg's 33 epochs would hide it
+        n, bs, bd, bw = generators.rmat(20, 4, seed=11)
+        batches = localized_batches(n)
+        trace = ServingTrace.from_log(ev.EventLog.concatenate(
+            [x for b in batches for x in (b, ev.query_marker())]))
+        ladder = [0]
+        real_wave = frontier_mod.ladder_wave
+
+        def counted_wave(*a, **k):
+            out = real_wave(*a, **k)
+            ladder[0] += out[3]
+            return out
+
+        sparse = {}
+        for obs in (False, True):
+            eng = repro_torch.make_engine(
+                num_vertices=n, edge_capacity=len(bs) + 8 * 48 + 64,
+                source=0, frontier_mode="sparse",     # K3 by default
+                observability=obs)
+            ladder[0] = 0
+            frontier_mod.ladder_wave = counted_wave
+            try:
+                t0 = time.perf_counter()
+                eng.ingest_log(ev.adds(bs, bd, bw))     # the base
+                torch.cuda.synchronize()
+                rep, seen, counts = replay(
+                    eng, trace, f"localized stream, sparse (K3), obs "
+                    f"{'on' if obs else 'off'} (after the base's ingest in "
+                    f"{time.perf_counter() - t0:.2f} s)")
+            finally:
+                frontier_mod.ladder_wave = real_wave
+            assert counts[2] > 0, "[12] the sparse leg never launched K3"
+            if obs:
+                same_answers("[12] sparse obs on vs off", seen, sparse[False][1])
+            sparse[obs] = (rep, seen)
+        served["gathered_rows_relax"] = counts[2]
+        snap, snap_s = snapshot_views(torch, eng, tmp)
+        occ = snap["counters"]["frontier_occupancy"]
+        assert occ == ladder[0] > 0, (occ, ladder[0])
+        q = seen[-1]
+        reached = snapshot_check(n, 0, *eng.alloc.active_coo(), q.dist,
+                                 q.parent)
+        on, off = sparse[True][0], sparse[False][0]
+        print(f"[12] sparse obs on / off: {on.events_per_s:.0f} / "
+              f"{off.events_per_s:.0f} topology events/s, ratio "
+              f"{on.events_per_s / off.events_per_s:.3f} over "
+              f"{snap['counters']['add_epochs']} ADD epochs and "
+              f"{on.queries} queries (printed, not held); bit-identical at "
+              f"all queries; frontier_occupancy {occ} = the sum of the "
+              f"ladder counts the waves read; latency p50 on / off "
+              f"{on.latency_s['p50'] * 1e3:.3f} / "
+              f"{off.latency_s['p50'] * 1e3:.3f} ms; final snapshot passes "
+              f"Dijkstra ({reached} reached); metrics_snapshot "
+              f"{snap_s * 1e3:.3f} ms")
+        del eng, seen, q, sparse
+    print(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return served
 
 
 # ------------------------------------------ phase 7: the K4 and K5 paths --
@@ -1601,8 +1876,13 @@ def main() -> int:
     buckets_legs(torch, ctx)
     k1_lanes, k2_lanes = lanes_legs(torch, ctx)
     kernels[0]["lanes"], kernels[1]["lanes"] = k1_lanes, k2_lanes
-    del ctx
     lanes_cross_check(torch)
+
+    # ---- 12. the serving path with observability
+    served = serving_legs(torch, ctx)
+    del ctx
+    for k in kernels:
+        k["serving_launches"] = served[k["name"]]
 
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))

@@ -8,8 +8,14 @@ and numpy only — nothing of JAX and nothing of ``repro``.
     import repro_torch
     eng = repro_torch.make_engine(num_vertices=n, edge_capacity=m, source=0,
                                   relax_backend="ellpack")   # on "cuda"
+    report = repro_torch.replay_trace(eng, repro_torch.open_trace(path))
 """
 from repro_torch.core.engine import EngineConfig, SSSPDelEngine
 from repro_torch.core.factory import make_engine
+from repro_torch.graphs.datasets import dataset_to_trace, load_dataset_or_exit
+from repro_torch.serving import (ServingTrace, TraceReader, TraceRecorder,
+                                 open_trace, replay_trace)
 
-__all__ = ["EngineConfig", "SSSPDelEngine", "make_engine"]
+__all__ = ["EngineConfig", "SSSPDelEngine", "ServingTrace", "TraceReader",
+           "TraceRecorder", "dataset_to_trace", "load_dataset_or_exit",
+           "make_engine", "open_trace", "replay_trace"]

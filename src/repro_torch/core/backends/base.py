@@ -196,6 +196,15 @@ class RelaxBackend:
     def restore(self, alloc: Any) -> None:
         """Rebuild layout state from the pool mirror after a restore."""
 
+    def layout_counters(self) -> dict[str, int]:
+        """Monotone host-side layout event totals for the obs layer
+        (DESIGN.md §10): rebuilds and overflow-lane placements so far.
+        The engine diffs successive calls (``EngineObs.note_layout``);
+        totals reset when "auto" swaps layouts, and the deltas clamp.
+        Segment has no planner and reports nothing; the ELL-family
+        planners carry ``rebuilds``, the sliced one also ``spills``."""
+        return {}
+
     def invariants(self) -> dict[str, bool]:
         """Occupancy invariants of the device layout (diagnostics/tests),
         as Python bools; none for a backend without a derived layout."""

@@ -381,5 +381,8 @@ class EllpackBackend(RelaxBackend):
                                   init_k=self.cfg.ell_init_k)
         self._rebuild(alloc)
 
+    def layout_counters(self):
+        return {"rebuilds": self.planner.rebuilds}
+
     def invariants(self):
         return ell_invariants(self.state)

@@ -522,5 +522,9 @@ class SlicedBackend(RelaxBackend):
         self.planner = self._mk_planner()
         self._rebuild(alloc)
 
+    def layout_counters(self):
+        return {"rebuilds": self.planner.rebuilds,
+                "overflow_hits": self.planner.spills}
+
     def invariants(self):
         return sliced_invariants(self.state, width=self.planner.max_width)

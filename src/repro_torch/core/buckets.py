@@ -68,8 +68,8 @@ def empty_pending(num_vertices: int, num_sources: int | None = None,
 
 def pending_occupancy(pend: PendingState) -> tuple[torch.Tensor, torch.Tensor]:
     """Device occupancy of the pending masks — (push, pull) counts as i32
-    scalars, or [S] vectors on a batched engine (the reference folds them
-    into its obs counters, which are not ported yet)."""
+    scalars, or [S] vectors on a batched engine; the engine folds them into
+    its obs counters at drain entry (no host read)."""
     return (pend.push.sum(-1, dtype=torch.int32),
             pend.pull.sum(-1, dtype=torch.int32))
 

@@ -36,9 +36,14 @@ CUDA, the plain torch version on the CPU (the reference's defaults there).
 An explicit True or False holds on either device; a kernel switch on a CPU
 engine still takes the plain version, since the wrappers launch only for
 CUDA tensors.
+``observability=True`` turns on the telemetry layer (``repro_torch.obs``,
+DESIGN.md §10): a span and a flight-recorder record per dispatched epoch
+(``obs_flight_capacity`` records kept), counters, histograms and an
+optional stall watchdog (``obs_watchdog``), read out by
+``metrics_snapshot()``.  It changes no route and no result, and adds no
+host read to ingest or drains.
 ``device`` defaults to "cuda" and raises when CUDA is unavailable — there
-is no silent CPU fallback; tests pass ``device="cpu"``.  The reference's
-``observability``, which a later slice ports, raises ``ValueError``.
+is no silent CPU fallback; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from repro_torch.core import frontier as frontier_mod
 from repro_torch.core import ingest, relax
 from repro_torch.core.state import EdgePool, GraphState, SSSPState
 from repro_torch.core.stream import QueryResult, StreamEngineBase
+from repro_torch.obs import WatchdogConfig
 
 __all__ = ["EngineConfig", "QueryResult", "SSSPDelEngine"]
 
@@ -84,16 +90,21 @@ class EngineConfig:
     frontier_cap: int = 0           # top ladder rung; 0 = derive (~N/64)
     frontier_kernel: bool | None = None  # None = K3 iff device is CUDA
     sources: tuple[int, ...] | None = None   # None = single-source
+    # telemetry (repro_torch.obs): counters, spans, histograms, flight
+    # recorder; a WatchdogConfig arms the stall watchdog (only with
+    # observability=True)
     observability: bool = False
+    obs_flight_capacity: int = 128
+    obs_watchdog: WatchdogConfig | None = None
     alloc_impl: str = "columnar"
     device: str = "cuda"
 
     def __post_init__(self):
         bk_mod.validate_backend_config(self)
         ingest.allocator_cls(self.alloc_impl)  # raises on unknown impl
-        if self.observability:
-            raise ValueError("observability=True is not yet ported to "
-                             "repro_torch")
+        if self.obs_flight_capacity < 1:
+            raise ValueError(f"obs_flight_capacity must be >= 1; got "
+                             f"{self.obs_flight_capacity}")
         if self.sources is not None:
             self.sources = tuple(int(s) for s in self.sources)
             bad = [s for s in self.sources
@@ -127,7 +138,10 @@ class SSSPDelEngine(StreamEngineBase):
 
     def __init__(self, cfg: EngineConfig):
         self.device = torch.device(cfg.device)
-        super().__init__(self.device, cfg.sources)
+        super().__init__(self.device, cfg.sources,
+                         observability=cfg.observability,
+                         flight_capacity=cfg.obs_flight_capacity,
+                         watchdog=cfg.obs_watchdog)
         self.cfg = cfg
         self.alloc = ingest.make_allocator(cfg.edge_capacity,
                                            cfg.on_duplicate, cfg.alloc_impl)
@@ -194,6 +208,12 @@ class SSSPDelEngine(StreamEngineBase):
             return True
         return occupancy_bound <= self._caps[-1]
 
+    def _fold_occupancy(self, occ) -> None:
+        """Fold a sparse epoch's summed per-wave occupancy (a host int, or
+        per lane) into the ``frontier_occupancy`` counter."""
+        if self.obs.enabled:
+            self.obs.counters.inc("frontier_occupancy", int(np.sum(occ)))
+
     def _bucket_width(self) -> float:
         """Resolve ``bucket_width="auto"`` host-side, as the reference does:
         the pow2-quantized median of the live pool weights, re-resolved only
@@ -228,6 +248,11 @@ class SSSPDelEngine(StreamEngineBase):
         plan = self.alloc.plan_adds(batch.src, batch.dst, batch.w)
         if len(plan.slots) == 0:
             return
+        with self.obs.epoch("add_epoch", events=len(plan.slots)):
+            self._add_epoch(plan)
+
+    def _add_epoch(self, plan: ingest.PlannedAdds) -> None:
+        """One dispatched ADD epoch (one span, one flight record)."""
         ingest.apply_adds(self.state.edges, *map(self._dev, ingest.pad_pow2(
             plan.slots, plan.src, plan.dst, plan.w)))
         # Frontier = tails of the inserted edges (paper Listing 3: the tail
@@ -239,7 +264,16 @@ class SSSPDelEngine(StreamEngineBase):
             self._out.apply_adds(plan, self.alloc)
         if self._auto and self.backend.blowup:
             self._fallback_to_sliced()
+        self.obs.note_layout(self.backend.layout_counters())
         tails = len(np.unique(plan.src))
+        if self.obs.enabled:
+            # the frontier = distinct inserted tails, known to the host plan
+            # already: one occupancy-histogram sample per ADD epoch
+            self.obs.counters.inc("frontier", tails)
+            self.obs.hist_host("hist_frontier_occupancy", tails)
+            if self.obs.watchdog is not None:
+                self.obs.watchdog.observe("add_epoch", 0.0,
+                                          {"frontier": tails})
         if self.bucketed:
             # deferred settle: record the push obligation and return — the
             # drain delivers the offers bucket by bucket
@@ -251,10 +285,11 @@ class SSSPDelEngine(StreamEngineBase):
                 sp_fn = (frontier_mod.sparse_relax_until_converged
                          if self.sources is None
                          else frontier_mod.sparse_relax_batched)
-                self.state.sssp, stats = sp_fn(
+                self.state.sssp, stats, occ = sp_fn(
                     self.state.sssp, self.state.edges, self._out.state,
                     frontier, num_vertices=self.cfg.num_vertices,
                     caps=self._caps, use_kernel=self._frontier_kernel)
+                self._fold_occupancy(occ)
             else:
                 relax_fn = (self.backend.relax if self.sources is None
                             else self.backend.relax_batched)
@@ -270,15 +305,16 @@ class SSSPDelEngine(StreamEngineBase):
             slots, psrc, pdst = self.alloc.plan_dels(gsrc, gdst)
             if len(slots) == 0:
                 continue
-            slots_p, psrc_p, pdst_p = ingest.pad_pow2(slots, psrc, pdst)
-            if self._sparse:
-                self._out.apply_dels(psrc_p, pdst_p)
-            if self.bucketed:
-                self._lazy_del(slots_p, psrc_p, pdst_p)
-            else:
-                self._eager_del(slots_p, psrc_p, pdst_p)
-            self.n_dels += len(slots)
-            self.n_epochs += 1
+            with self.obs.epoch("del_epoch", events=len(slots)):
+                slots_p, psrc_p, pdst_p = ingest.pad_pow2(slots, psrc, pdst)
+                if self._sparse:
+                    self._out.apply_dels(psrc_p, pdst_p)
+                if self.bucketed:
+                    self._lazy_del(slots_p, psrc_p, pdst_p)
+                else:
+                    self._eager_del(slots_p, psrc_p, pdst_p)
+                self.n_dels += len(slots)
+                self.n_epochs += 1
 
     def _lazy_del(self, slots_p: np.ndarray, psrc_p: np.ndarray,
                   pdst_p: np.ndarray) -> None:
@@ -310,11 +346,12 @@ class SSSPDelEngine(StreamEngineBase):
             sp_fn = (frontier_mod.sparse_invalidate_and_recompute
                      if self.sources is None
                      else frontier_mod.sparse_delete_batched)
-            self.state.sssp, dstats = sp_fn(
+            self.state.sssp, dstats, occ = sp_fn(
                 self.state.sssp, self.state.edges, self._out.state, seed,
                 num_vertices=self.cfg.num_vertices, caps=self._caps,
                 use_doubling=self.cfg.use_doubling,
                 use_kernel=self._frontier_kernel)
+            self._fold_occupancy(occ)
         else:
             delete_fn = (self.backend.delete if self.sources is None
                          else self.backend.delete_batched)
@@ -330,24 +367,36 @@ class SSSPDelEngine(StreamEngineBase):
         without a query's readback."""
         if not self.bucketed:
             return
-        bw = self._bucket_width()
-        if self._route_sparse(self._pend_bound):
-            sp_fn = (frontier_mod.sparse_drain if self.sources is None
-                     else frontier_mod.sparse_drain_batched)
-            sssp, self._pend, stats = sp_fn(
-                self.state.sssp, self.state.edges, self._out.state,
-                self._pend, num_vertices=self.cfg.num_vertices,
-                caps=self._caps, bucket_width=bw,
-                use_kernel=self._frontier_kernel)
-        else:
-            drain_fn = (self.backend.drain if self.sources is None
-                        else self.backend.drain_batched)
-            sssp, self._pend, stats = drain_fn(
-                self.state.sssp, self.state.edges, self._pend,
-                bucket_width=bw)
-        self._pend_bound = 0
-        self.state.sssp = sssp
-        self._accumulate_relax(stats)
+        if self.obs.enabled:
+            # pending occupancy at drain entry: device sums the registry
+            # folds lazily ([S] per lane on a batched engine)
+            occ_push, occ_pull = buckets.pending_occupancy(self._pend)
+            occ_dim = None if self.sources is None else "lane"
+            self.obs.counters.add("pending_push", occ_push, dim=occ_dim)
+            self.obs.counters.add("pending_pull", occ_pull, dim=occ_dim)
+        with self.obs.epoch("drain"):
+            bw = self._bucket_width()
+            if self._route_sparse(self._pend_bound):
+                sp_fn = (frontier_mod.sparse_drain if self.sources is None
+                         else frontier_mod.sparse_drain_batched)
+                sssp, self._pend, stats, occ = sp_fn(
+                    self.state.sssp, self.state.edges, self._out.state,
+                    self._pend, num_vertices=self.cfg.num_vertices,
+                    caps=self._caps, bucket_width=bw,
+                    use_kernel=self._frontier_kernel)
+                self._fold_occupancy(occ)
+            else:
+                drain_fn = (self.backend.drain if self.sources is None
+                            else self.backend.drain_batched)
+                sssp, self._pend, stats = drain_fn(
+                    self.state.sssp, self.state.edges, self._pend,
+                    bucket_width=bw)
+            self._pend_bound = 0
+            self.state.sssp = sssp
+            self._accumulate_relax(stats)
+            if self.obs.enabled:
+                # the waves this drain spent (host rounds)
+                self.obs.counters.inc("drain_waves", stats.rounds)
 
     def _snapshot(self, lane: int | None) -> tuple[np.ndarray, np.ndarray]:
         """Drain, then read back; a routed lane query transfers only that
@@ -365,14 +414,15 @@ class SSSPDelEngine(StreamEngineBase):
         dist/parent and an [S] source).  It drains first: a checkpoint
         captures a converged tree.  Backend layout state is NOT serialized —
         it is a derived view, rebuilt from the pool."""
-        self.drain()
-        e, s = self.state.edges, self.state.sssp
-        return {
-            "src": _host(e.src), "dst": _host(e.dst), "w": _host(e.w),
-            "active": _host(e.active), "dist": _host(s.dist),
-            "parent": _host(s.parent), "source": _host(s.source),
-            "cursor": _host(self.state.cursor),
-        }
+        with self.obs.epoch("checkpoint"):
+            self.drain()
+            e, s = self.state.edges, self.state.sssp
+            return {
+                "src": _host(e.src), "dst": _host(e.dst), "w": _host(e.w),
+                "active": _host(e.active), "dist": _host(s.dist),
+                "parent": _host(s.parent), "source": _host(s.source),
+                "cursor": _host(self.state.cursor),
+            }
 
     def restore(self, ckpt: dict[str, np.ndarray]) -> None:
         """Load a checkpoint (this engine's or the reference engine's): the
@@ -392,6 +442,8 @@ class SSSPDelEngine(StreamEngineBase):
         self.backend.restore(self.alloc)
         if self._sparse:
             self._out.restore(self.alloc)
+        # the restore's layout rebuild is a real rebuild event
+        self.obs.note_layout(self.backend.layout_counters())
         # checkpoints are taken after a drain, so nothing was pending
         self._pend = self._empty_pending()
         self._pend_bound = 0

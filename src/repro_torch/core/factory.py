@@ -18,9 +18,13 @@ which default to the kernel on a CUDA device and the plain torch version
 on the CPU; pass False to run the plain version on the card), the
 frontier (``frontier_mode``, ``frontier_cap``), the schedule
 (``wave_schedule``, ``bucket_width``), ``sources``, ``batch_deletions``,
-``use_doubling``, ``on_duplicate``, ``alloc_impl`` and ``device``.
-``observability`` and the sharded engine (``partitions=`` / ``mesh=`` in
-the reference) are not yet ported.
+``use_doubling``, ``on_duplicate``, ``alloc_impl``, ``device`` and the
+telemetry knobs (``observability``, ``obs_flight_capacity``,
+``obs_watchdog``).  The sharded engine (``partitions=`` / ``mesh=`` in the
+reference) is not yet ported.
+
+    eng = make_engine(num_vertices=n, edge_capacity=m, observability=True,
+                      obs_watchdog=WatchdogConfig())
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ path instead:
     version;
   * the sparse relax and delete epochs, mirroring the dense ones' loops,
     and the bucketed drain (``sparse_drain``: the segment pull, then each
-    bucket's waves through the ladder);
+    bucket's waves through the ladder); each also returns its summed
+    per-wave occupancy (the ``frontier_occupancy`` obs counter), the
+    ladder's count, which the host reads anyway to pick the rung;
   * their lane-stack forms (``sparse_*_batched``), which run the one-tree
     epoch lane by lane, K3 once per lane and wave.  The reference vmaps
     them, under which ``lax.cond`` runs both ladder branches, and calls
@@ -205,13 +207,13 @@ def ladder_wave(dist: torch.Tensor, parent: torch.Tensor,
                 frontier: torch.Tensor, st: SlicedEllState, edges: EdgePool,
                 *, caps: tuple[int, ...], num_vertices: int,
                 use_kernel: bool = False
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """One wave through the capacity ladder: compact once at the top rung,
     run the smallest rung whose vertex count, ELL cell total AND live
     hub-overflow count all fit its budgets, else the exact dense
     ``relax_round`` over the pool.  The three counts come back to the host
     in one read.  All branches are bit-identical: the rung is a cost
-    choice."""
+    choice.  Returns (dist, parent, improved, the frontier's count)."""
     wl, count = compact_mask(frontier, cap=caps[-1])
     rows = wl.clamp(0, st.fill.shape[0] - 1)
     ecs = torch.cumsum(torch.where(wl >= 0, st.fill[rows], 0), 0,
@@ -222,11 +224,29 @@ def ladder_wave(dist: torch.Tensor, parent: torch.Tensor,
     for c in caps:
         eb = edge_budget(c)
         if count_h <= c and etotal <= eb and ocnt <= eb:
-            return sparse_push_wave(
+            return (*sparse_push_wave(
                 dist, parent, wl[:c], ecs[:c], ocs, st, ecap=eb, ocap=eb,
-                num_vertices=num_vertices, use_kernel=use_kernel)
-    return relax.relax_round(dist, parent, edges, frontier,
-                             num_vertices=num_vertices)
+                num_vertices=num_vertices, use_kernel=use_kernel), count_h)
+    return (*relax.relax_round(dist, parent, edges, frontier,
+                               num_vertices=num_vertices), count_h)
+
+
+def _ladder(st: SlicedEllState, edges: EdgePool, *, caps: tuple[int, ...],
+            num_vertices: int, use_kernel: bool
+            ) -> tuple[relax.Wave, list[int]]:
+    """A ladder wave for the converged / drain loops, and the list each
+    wave's occupancy count is appended to (the epoch's occupancy is its
+    sum)."""
+    counts: list[int] = []
+
+    def wave(dist, parent, frontier):
+        dist, parent, improved, count = ladder_wave(
+            dist, parent, frontier, st, edges, caps=caps,
+            num_vertices=num_vertices, use_kernel=use_kernel)
+        counts.append(count)
+        return dist, parent, improved
+
+    return wave, counts
 
 
 # ------------------------------------------------------------ sparse epochs --
@@ -234,59 +254,56 @@ def sparse_relax_until_converged(
     sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     frontier: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
     use_kernel: bool = False,
-) -> tuple[SSSPState, RelaxStats]:
+) -> tuple[SSSPState, RelaxStats, int]:
     """Sparse rendering of ``relax.relax_until_converged``: the same
     converged-loop driver and [N]-mask carry, each wave through the
-    capacity ladder.  (The reference also returns the summed per-wave
-    occupancy for its observability counters, which are not ported yet.)"""
-
-    def wave(dist, parent, frontier):
-        return ladder_wave(dist, parent, frontier, st, edges, caps=caps,
-                           num_vertices=num_vertices, use_kernel=use_kernel)
-
+    capacity ladder.  Also returns the summed per-wave occupancy."""
+    wave, counts = _ladder(st, edges, caps=caps, num_vertices=num_vertices,
+                           use_kernel=use_kernel)
     dist, parent, rounds, msgs = converged_loop(
         sssp.dist, sssp.parent, frontier, wave)
     return (SSSPState(dist=dist, parent=parent, source=sssp.source),
-            RelaxStats(rounds=rounds, messages=msgs))
+            RelaxStats(rounds=rounds, messages=msgs), sum(counts))
 
 
 def sparse_invalidate_and_recompute(
     sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     seed: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
     use_doubling: bool = True, use_kernel: bool = False,
-) -> tuple[SSSPState, del_mod.DeleteStats]:
+) -> tuple[SSSPState, del_mod.DeleteStats, int]:
     """Sparse deletion epoch — ``delete.invalidate_and_recompute``'s
     structure (same marking, same dense bulk pull over the pool's in-edges,
     which the OUT sidecar cannot serve and which runs once per epoch); only
-    the push recompute waves run through the ladder."""
+    the push recompute waves run through the ladder, whose summed
+    occupancy comes back third."""
     if not bool(seed.any()):
-        return sssp, del_mod.empty_delete_stats(seed)
+        return sssp, del_mod.empty_delete_stats(seed), 0
     aff, inv_rounds, dist, parent = del_mod.invalidate(
         sssp, seed, use_doubling=use_doubling)
     dist, parent, improved = del_mod.pull_once(dist, parent, edges, aff,
                                                num_vertices)
-    state, stats = sparse_relax_until_converged(
+    state, stats, occ = sparse_relax_until_converged(
         SSSPState(dist=dist, parent=parent, source=sssp.source), edges, st,
         improved, num_vertices=num_vertices, caps=caps,
         use_kernel=use_kernel)
     return state, del_mod.recompute_stats(aff, inv_rounds, improved, stats,
-                                          True)
+                                          True), occ
 
 
 def sparse_drain(sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
                  pend: buckets.PendingState, *, num_vertices: int,
                  caps: tuple[int, ...], bucket_width: float,
                  use_kernel: bool = False
-                 ) -> tuple[SSSPState, buckets.PendingState, RelaxStats]:
+                 ) -> tuple[SSSPState, buckets.PendingState, RelaxStats,
+                            int]:
     """Sparse bucketed drain: ``buckets.run_drain`` with each bucket's
     active mask compacted through the ladder.  The pull is
     ``delete.pull_once`` (segment-style, the dense pool's in-edges), as in
     ``segment_drain``, so the wave sequence and stats match by
-    construction."""
-
-    def wave(dist, parent, active):
-        return ladder_wave(dist, parent, active, st, edges, caps=caps,
-                           num_vertices=num_vertices, use_kernel=use_kernel)
+    construction.  Also returns the summed occupancy of the bucket waves
+    (the pull is not one)."""
+    wave, counts = _ladder(st, edges, caps=caps, num_vertices=num_vertices,
+                           use_kernel=use_kernel)
 
     def pull_wave(dist, parent, aff):
         return del_mod.pull_once(dist, parent, edges, aff, num_vertices)
@@ -294,7 +311,7 @@ def sparse_drain(sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     dist, parent, stats = buckets.run_drain(
         sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
         wave=wave, pull_wave=pull_wave)
-    return (*buckets.drained(sssp, pend, dist, parent), stats)
+    return (*buckets.drained(sssp, pend, dist, parent), stats, sum(counts))
 
 
 # ------------------------------------------------ lane-stack renderings --
@@ -317,33 +334,43 @@ def _stack_stats(stats: list) -> tuple:
         else np.asarray(col, np.int64) for col in zip(*stats)))
 
 
+def _occupancy(out: list) -> np.ndarray:
+    """The lanes' summed occupancies (the last item of each lane's result)
+    as an i64[S] array."""
+    return np.asarray([o[-1] for o in out], np.int64)
+
+
 def sparse_relax_batched(sssp: SSSPState, edges: EdgePool,
                          st: SlicedEllState, frontier: torch.Tensor, **kw
-                         ) -> tuple[SSSPState, RelaxStats]:
+                         ) -> tuple[SSSPState, RelaxStats, np.ndarray]:
     """``sparse_relax_until_converged`` lane by lane (the shared ADD
-    frontier in each)."""
+    frontier in each); occupancy per lane."""
     out = [sparse_relax_until_converged(_lane(sssp, i), edges, st, frontier,
                                         **kw)
            for i in range(sssp.dist.shape[0])]
-    return _stack([o[0] for o in out]), _stack_stats([o[1] for o in out])
+    return (_stack([o[0] for o in out]), _stack_stats([o[1] for o in out]),
+            _occupancy(out))
 
 
 def sparse_delete_batched(sssp: SSSPState, edges: EdgePool,
                           st: SlicedEllState, seed: torch.Tensor, **kw
-                          ) -> tuple[SSSPState, del_mod.DeleteStats]:
+                          ) -> tuple[SSSPState, del_mod.DeleteStats,
+                                     np.ndarray]:
     """``sparse_invalidate_and_recompute`` lane by lane, each lane with its
-    own seed."""
+    own seed; occupancy per lane."""
     out = [sparse_invalidate_and_recompute(_lane(sssp, i), edges, st,
                                            seed[i], **kw)
            for i in range(sssp.dist.shape[0])]
-    return _stack([o[0] for o in out]), _stack_stats([o[1] for o in out])
+    return (_stack([o[0] for o in out]), _stack_stats([o[1] for o in out]),
+            _occupancy(out))
 
 
 def sparse_drain_batched(sssp: SSSPState, edges: EdgePool,
                          st: SlicedEllState, pend: buckets.PendingState,
                          **kw) -> tuple[SSSPState, buckets.PendingState,
-                                        RelaxStats]:
-    """``sparse_drain`` lane by lane, each lane with its own pending set."""
+                                        RelaxStats, np.ndarray]:
+    """``sparse_drain`` lane by lane, each lane with its own pending set;
+    occupancy per lane."""
     out = [sparse_drain(_lane(sssp, i), edges, st,
                         buckets.PendingState(pend.push[i], pend.pull[i]),
                         **kw)
@@ -351,4 +378,4 @@ def sparse_drain_batched(sssp: SSSPState, edges: EdgePool,
     return (_stack([o[0] for o in out]),
             buckets.PendingState(torch.stack([o[1].push for o in out]),
                                  torch.stack([o[1].pull for o in out])),
-            _stack_stats([o[2] for o in out]))
+            _stack_stats([o[2] for o in out]), _occupancy(out))

@@ -1,5 +1,5 @@
 """Event-stream plumbing for the dynamic engine (torch rendering of
-``repro.core.stream``, observability left out).
+``repro.core.stream``).
 
 Everything that is *stream* logic rather than *epoch* logic lives here:
 
@@ -15,7 +15,13 @@ Everything that is *stream* logic rather than *epoch* logic lives here:
     loops already read each wave's condition back), messages accumulate in
     a device scalar read back only by ``n_messages`` / ``query()``; on a
     batched engine both are per-lane ``[S]`` vectors;
-  * the paper's §5.4 predecessor-stability metric, scoped per source.
+  * the paper's §5.4 predecessor-stability metric, scoped per source;
+  * the observability hooks (DESIGN.md §10, ``repro_torch.obs``): the
+    waves- and messages-per-epoch histogram samples folded with the epoch
+    stats, the ``query`` span with its latency histogram (and per-lane rows
+    on a batched engine), ``metrics_snapshot()`` and
+    ``dump_flight_recorder()``.  Rounds are host samples, messages device
+    ones; both go through the same ``hist_*`` names.
 
 Subclasses implement ``_ingest_adds`` / ``_ingest_dels`` / ``_snapshot``.
 """
@@ -29,6 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.obs import EngineObs, WatchdogConfig
+from repro_torch.obs import hist as hist_mod
 
 
 @dataclasses.dataclass
@@ -44,7 +52,14 @@ class StreamEngineBase:
     """Host-side driver over device epochs; subclasses own the state."""
 
     def __init__(self, device: torch.device,
-                 sources: tuple[int, ...] | None = None) -> None:
+                 sources: tuple[int, ...] | None = None, *,
+                 observability: bool = False, flight_capacity: int = 128,
+                 watchdog: WatchdogConfig | None = None) -> None:
+        # counter registry + span tracer + flight recorder + optional stall
+        # watchdog; every hook no-ops when disabled
+        self.obs = EngineObs(enabled=observability,
+                             flight_capacity=flight_capacity,
+                             watchdog=watchdog)
         # batched multi-source mode: ``sources`` is the tuple of maintained
         # sources (None = single-source); ``_lane_of`` routes a query's
         # source to its row of the stacked [S, N] state
@@ -85,17 +100,25 @@ class StreamEngineBase:
             "dels": self.n_dels,
         }
 
+    def _accumulate(self, rounds, messages: torch.Tensor) -> None:
+        """Fold one epoch's rounds (host) and messages (device) — no host
+        read; with obs on, one sample each for the waves- and
+        messages-per-epoch histograms (§10.6), a list append."""
+        self._rounds = self._rounds + rounds
+        self._dev_messages += messages
+        if self.obs.enabled:
+            self.obs.hist_device("hist_waves_per_epoch", rounds)
+            self.obs.hist_device("hist_messages_per_epoch", messages)
+
     def _accumulate_relax(self, stats) -> None:
-        """Fold one relaxation epoch's ``RelaxStats`` (no host sync)."""
-        self._rounds = self._rounds + stats.rounds
-        self._dev_messages += stats.messages
+        """Fold one relaxation epoch's ``RelaxStats``."""
+        self._accumulate(stats.rounds, stats.messages)
 
     def _accumulate_delete(self, dstats) -> None:
         """Fold one deletion epoch's ``DeleteStats``; ``affected`` counts as
         messages (the SetToInfinity deliveries), as in the reference."""
-        self._rounds = (self._rounds + dstats.invalidation_rounds
-                        + dstats.recompute_rounds)
-        self._dev_messages += dstats.recompute_messages + dstats.affected
+        self._accumulate(dstats.invalidation_rounds + dstats.recompute_rounds,
+                         dstats.recompute_messages + dstats.affected)
 
     def _deletion_groups(self, batch: ev.EventBatch
                          ) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -160,8 +183,26 @@ class StreamEngineBase:
                     f"source {source} is not served by this engine "
                     f"(source={self.cfg.source})")
         t0 = time.perf_counter()
-        dist, parent = self._snapshot(lane)
+        # the query span nests the drain span a bucketed _snapshot opens
+        with self.obs.epoch("query", lane=lane):
+            dist, parent = self._snapshot(lane)
         dt = time.perf_counter() - t0
+        if self.obs.enabled:
+            # result-latency histogram in microseconds (§10.6): its sample
+            # count equals the ``queries`` counter by construction
+            us = dt * 1e6
+            self.obs.hist_host("hist_latency_us", us)
+            if lane is not None:
+                # per-lane attribution (§10.5): a routed query tallies its
+                # lane and folds the sample into an [S, B] per-lane row
+                S = len(self.sources)
+                one = np.zeros(S, np.int64)
+                one[lane] = 1
+                self.obs.counters.inc("queries_per_lane", one, dim="lane")
+                row = np.zeros((S, hist_mod.NUM_BUCKETS), np.int64)
+                row[lane, hist_mod.bucket_index_np(us)] = 1
+                self.obs.counters.inc("hist_latency_us_per_lane", row,
+                                      dim="lane")
         return QueryResult(dist=dist, parent=parent, latency_s=dt,
                            epoch_stats=self._stream_stats(),
                            source=None if source is None else int(source))
@@ -188,6 +229,39 @@ class StreamEngineBase:
                     if on_query is not None:
                         on_query(res)
         return results
+
+    def metrics_snapshot(self) -> dict[str, Any]:
+        """One-stop observable state (DESIGN.md §10): the stream counters,
+        rounds (host) and messages (read from the same device counter as
+        ``n_messages``), the counter registry's snapshot (its one
+        device->host copy), histogram summaries and dimension attribution
+        derived from that same snapshot, span counts and flight-recorder
+        occupancy.  An armed watchdog reviews the snapshot for divergence;
+        its findings land in the *next* snapshot's counters (§10.8)."""
+        if self.obs.enabled:
+            self.obs.flush_histograms()
+        counters = self.obs.counters.snapshot()
+        snap = {
+            "epochs": self.n_epochs, "adds": self.n_adds,
+            "dels": self.n_dels, "rounds": self.n_rounds,
+            "messages": self.n_messages,
+            "counters": counters,
+            "histograms": hist_mod.summarize(counters),
+            "attribution": self.obs.counters.attribution(counters),
+            "spans": self.obs.tracer.span_counts(),
+            "flight": {"records": self.obs.recorder.total,
+                       "capacity": self.obs.recorder.capacity},
+        }
+        if self.obs.watchdog is not None:
+            self.obs.watchdog.review(counters)
+        return snap
+
+    def dump_flight_recorder(self, file=None) -> str:
+        """Postmortem: write the flight-recorder ring (most recent epoch
+        records) as JSONL to ``file`` (default stderr) and return it."""
+        return self.obs.recorder.dump(
+            file=file, header=f"flight recorder "
+            f"({self.obs.recorder.total} records total)")
 
     def stability_vs_prev(self, parent: np.ndarray,
                           source: int | None = None) -> float:

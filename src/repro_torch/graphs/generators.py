@@ -6,7 +6,9 @@ packages.
 * ``rmat`` — R-MAT with Graph500 parameters (a, b, c, d) = (0.57, 0.19,
   0.19, 0.05), the paper's RMAT(20) source, weights U(0, 4) floored at
   1e-3: power-law in-degree hubs, the sliced backend's workload;
-* ``erdos_renyi`` — uniform random digraphs.
+* ``erdos_renyi`` — uniform random digraphs;
+* ``power_law_hubs`` — a few in-degree hubs on ~30 % of the edges (the
+  example's ``--power-law`` stream).
 """
 from __future__ import annotations
 
@@ -58,6 +60,35 @@ def erdos_renyi(n: int, m: int, *, seed: int = 0,
     src, dst = src[idx][:m], dst[idx][:m]
     lo, hi = weights
     w = (lo + (hi - lo) * rng.random(len(src))).astype(np.float32)
+    return n, src, dst, w
+
+
+def power_law_hubs(n: int, m: int, n_hubs: int = 3, *, seed: int = 0
+                   ) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """Hub-heavy digraph: ~30% of edges end at one of ``n_hubs`` hubs, the
+    rest are uniform.
+
+    The hub mass sits on the *destination* side (high in-degree hubs — the
+    regime that stresses by-destination edge layouts: dense ELL pads every
+    row to the hub degree, the sliced/hybrid backend exists for exactly
+    this shape — DESIGN.md §6).  The stream equals the reference's
+    ``power_law_hubs(..., orientation="in")``.
+    """
+    rng = np.random.default_rng(seed)
+    hubs = rng.choice(n, n_hubs, replace=False)
+    m_hub = m // 3
+    dst = np.concatenate([
+        rng.choice(hubs, m_hub),
+        rng.integers(0, n, m - m_hub),
+    ])
+    src = rng.integers(0, n, m)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    key = src * n + dst
+    _, idx = np.unique(key, return_index=True)
+    idx.sort()
+    src, dst = src[idx], dst[idx]
+    w = np.ones(len(src), np.float32)  # paper: unit weights for real graphs
     return n, src, dst, w
 
 

@@ -64,3 +64,4 @@ def sliding_window_stream(
     return ev.EventLog(
         np.concatenate(kinds), np.concatenate(srcs).astype(np.int64),
         np.concatenate(dsts).astype(np.int64), np.concatenate(ws))
+

@@ -6,8 +6,10 @@ K2's lane forms (S trees in one launch) against S single-lane kernel calls
 and the lane plain versions, and engines on the kernels against the same
 engines on the plain versions (dense ELL on K1; sliced on K2 and on K1 per
 run of slices; the sparse frontier on K3; batched multi-source and
-bucketed engines on the lane forms).  Every test here needs a CUDA device and skips without one (decided
-inside the test).  Tolerance: 0 — bit-identical — except the gradients of
+bucketed engines on the lane forms), and observability on the kernels'
+engines (bit-identical to it off), the card's histogram bucketing and the
+one-copy counter snapshot.  Every test here needs a CUDA device and skips
+without one (decided inside the test).  Tolerance: 0 — bit-identical — except the gradients of
 ``neighbor_reduce`` and ``bag_lookup``, whose backward scatters with
 ``index_add_``: on the card its atomics add in no fixed order, so the
 kernel route's gradient is held against the plain route's within rtol =
@@ -814,3 +816,94 @@ def test_batched_engines_on_lane_forms_match_plain_version(
     want = ref.ingest_log(log)
     assert (ellpack_relax.launches, fused_sliced_relax.launches) == before
     _same_lane_runs(got, want)
+
+
+# ----------------------------------------------------------- observability --
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,knobs", [
+    (ellpack_relax, dict(relax_backend="ellpack", ell_init_k=2)),
+    (fused_sliced_relax, dict(relax_backend="auto", sliced_slice_rows=32,
+                              sliced_hub_k=8, wave_schedule="buckets",
+                              bucket_width=1.0)),
+    (gathered_rows_relax, dict(frontier_mode="sparse", frontier_cap=64))],
+    ids=["K1", "K2-auto-buckets", "K3-sparse"])
+def test_obs_engines_on_kernels_match_obs_off(cuda, kernel, knobs):
+    """observability=True on the card's kernels changes no route and no
+    result: the same launches, the same answers and counters as with it
+    off; its snapshot agrees with the engine's own figures."""
+    stream = _rmat_stream()
+    want, off = _run(stream, kernel, **knobs)
+    n, cap, log = stream
+    before = kernel.launches
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, observability=True, **knobs)
+    got = eng.ingest_log(log)
+    assert kernel.launches - before == off > 0
+    _same_runs(got, want)
+    snap = eng.metrics_snapshot()
+    ct, sp, h = snap["counters"], snap["spans"], snap["histograms"]
+    assert snap["rounds"] == eng.n_rounds and snap["messages"] == \
+        eng.n_messages
+    assert sp["add_epoch"] == ct["add_epochs"] == \
+        h["frontier_occupancy"]["count"]
+    assert sp["query"] == ct["queries"] == len(got)
+    assert sp.get("rebuild", 0) == ct.get("rebuilds", 0)
+    if kernel is gathered_rows_relax:
+        assert ct["frontier_occupancy"] > 0
+    if knobs.get("wave_schedule") == "buckets":
+        assert ct["drain_waves"] > 0 and ct["pending_push"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int64, torch.int32])
+def test_device_bucketing_on_the_card_equals_host_twin(cuda, dtype):
+    """The histogram bucketing of CUDA tensors lands every sample where
+    the host twin ``bucket_index_np`` does: 0, 0.3, 1, 2^k - 1, 2^k,
+    2^k + 1 (k <= 24), NaN, negatives, +-inf."""
+    from repro_torch.obs import hist
+    vals = [0.0, 0.3, 1.0] + [float(v) for k in range(1, 25)
+                              for v in (2**k - 1, 2**k, 2**k + 1)]
+    if dtype.is_floating_point:
+        vals += [float("nan"), -7.0, -float("inf")]
+    else:
+        vals = [v for v in vals if v.is_integer()] + [-7.0]
+    t = torch.tensor(vals, dtype=torch.float64).to(dtype)
+    got = hist.bucket_index(t.to(cuda)).cpu().tolist()
+    assert got == [hist.bucket_index_np(float(v)) for v in t.tolist()]
+    assert hist.bucket_index(torch.tensor([float("inf")], device=cuda)
+                             ).item() == hist.NUM_BUCKETS - 1
+    counts = hist.one_hot(t.to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(
+        counts, sum(hist.one_hot_np(float(v)) for v in t.tolist()))
+
+
+@pytest.mark.cuda
+def test_counter_snapshot_is_one_copy_from_the_card(cuda, monkeypatch):
+    """A bucketed engine's registry (pending counts, message histograms,
+    on the card) comes back to the host in one device->host copy."""
+    n, cap, log = _rmat_stream()
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      observability=True, wave_schedule="buckets",
+                      relax_backend="ellpack")
+    eng.ingest_log(log)
+    eng.obs.flush_histograms()
+    assert any(isinstance(v, torch.Tensor) and v.is_cuda
+               for v in eng.obs.counters._dev.values())
+    reads = []
+    for meth in ("to", "cpu", "item", "tolist", "__int__", "__float__",
+                 "__bool__", "__index__", "__array__"):
+        real = getattr(torch.Tensor, meth)
+
+        def counted(self, *a, _real=real, _m=meth, **k):
+            out = _real(self, *a, **k)
+            if self.is_cuda and not (isinstance(out, torch.Tensor)
+                                     and out.is_cuda):
+                reads.append(_m)
+            return out
+
+        monkeypatch.setattr(torch.Tensor, meth, counted)
+    snap = eng.obs.counters.snapshot()
+    monkeypatch.undo()
+    assert reads == ["to"], reads
+    assert snap["pending_push"] > 0

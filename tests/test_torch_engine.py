@@ -156,16 +156,13 @@ def test_validate_state_and_stability_match_reference():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(observability=True),
-    dict(observability=True, wave_schedule="buckets"),
-    dict(observability=True, sources=(0, 1)),
-    dict(observability=True, relax_backend="sliced", frontier_mode="sparse"),
     dict(partitions=2), dict(partitions=2, sources=(0, 1)),
     dict(mesh=None), dict(relabel=True)])
 def test_later_slices_raise_not_yet_ported(knobs):
-    """Observability and the sharded engine are still to come (the bucketed
-    schedule and ``sources`` are ported: test_torch_buckets.py,
-    test_torch_serving.py)."""
+    """The sharded engine (``partitions=``, ``mesh=``, ``relabel=``) is
+    still to come (the bucketed schedule, ``sources`` and observability are
+    ported: test_torch_buckets.py, test_torch_serving.py,
+    test_torch_obs.py)."""
     with pytest.raises(ValueError, match="not yet ported"):
         make_engine(num_vertices=8, edge_capacity=8, device="cpu", **knobs)
 

@@ -141,14 +141,15 @@ def test_sparse_epochs_match_reference():
     s, js = SSSPState.init(n, SOURCE, "cpu"), JState.init(n, SOURCE)
     f = np.zeros(n, bool)
     f[SOURCE] = True
-    s, st = frontier.sparse_relax_until_converged(
+    s, st, occ = frontier.sparse_relax_until_converged(
         s, pool, out.state, *_t(f), num_vertices=n, caps=caps)
-    js, jst, _ = jfr.sparse_relax_until_converged(
+    js, jst, jocc = jfr.sparse_relax_until_converged(
         js, jpool, jout.state, jnp.asarray(f), num_vertices=n, caps=caps)
     np.testing.assert_array_equal(s.dist.numpy(), np.asarray(js.dist))
     np.testing.assert_array_equal(s.parent.numpy(), np.asarray(js.parent))
     assert (st.rounds, int(st.messages)) == (int(jst.rounds),
                                              int(jst.messages))
+    assert occ == int(jocc) > 0
 
     par = s.parent.numpy()
     kids = np.nonzero(par >= 0)[0][[0, -1]].astype(np.int32)
@@ -162,11 +163,12 @@ def test_sparse_epochs_match_reference():
     out.apply_dels(srcs, kids)
     jout.apply_dels(srcs, kids)
     for use_kernel in (False, True):
-        s2, d2 = frontier.sparse_invalidate_and_recompute(
+        s2, d2, occ = frontier.sparse_invalidate_and_recompute(
             s, pool, out.state, seed_t, num_vertices=n, caps=caps,
             use_kernel=use_kernel)
-        js2, jd2, _ = jfr.sparse_invalidate_and_recompute(
+        js2, jd2, jocc = jfr.sparse_invalidate_and_recompute(
             js, jpool, jout.state, jseed, num_vertices=n, caps=caps)
+        assert occ == int(jocc)
         np.testing.assert_array_equal(s2.dist.numpy(), np.asarray(js2.dist))
         np.testing.assert_array_equal(s2.parent.numpy(),
                                       np.asarray(js2.parent))

@@ -1,7 +1,7 @@
 """Import discipline of the port: ``repro_torch`` and every submodule import
 with ``jax`` and ``repro`` blocked, and no file of the port (nor
-``chip_smoke.py``) imports either; the engine's default device is CUDA with
-no silent CPU fallback."""
+``chip_smoke.py``, nor the port's example) imports either; the engine's
+default device is CUDA with no silent CPU fallback."""
 import ast
 import os
 import subprocess
@@ -37,7 +37,13 @@ SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.kernels.spmm.ops",
                  "repro_torch.kernels.spmm.spmm",
                  "repro_torch.kernels.embed_bag.ops",
-                 "repro_torch.kernels.embed_bag.embed_bag")
+                 "repro_torch.kernels.embed_bag.embed_bag",
+                 "repro_torch.obs", "repro_torch.obs.counters",
+                 "repro_torch.obs.export", "repro_torch.obs.hist",
+                 "repro_torch.obs.recorder", "repro_torch.obs.spans",
+                 "repro_torch.obs.watchdog", "repro_torch.serving",
+                 "repro_torch.serving.metrics", "repro_torch.serving.replay",
+                 "repro_torch.serving.trace", "repro_torch.graphs.datasets")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -60,7 +66,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "examples" / "torch_streaming_sssp.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_jax_or_repro(path):
     bad = {m for m in _imported_modules(path)
