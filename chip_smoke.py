@@ -103,12 +103,29 @@ Phases (any failure raises and exits non-zero):
      off and then on: bit-identical, the on / off events/s ratio over its
      96 short epochs (printed, not held), ``frontier_occupancy`` equal to
      the sum of the ladder counts the waves read.  K1-K3 counts set to 0 before each leg, printed after;
+  13. the sharded engine with SHARDS = 8 partitions stacked on cuda:0
+     (``make_mesh((8,), ("graph",), devices=[cuda:0] * 8)``): phase 8's
+     cut of the ER stream through ``make_engine(relax_backend="ellpack",
+     batch_deletions=True, mesh=...)``, K1 once per partition and wave
+     (its count set to 0 just before and read just after), bit-identical
+     to phase 3's run at every query (dist, parent, rounds, messages),
+     Dijkstra at the end; K1 on each partition's block against its plain
+     version (variant per partition) and timed three ways, one block and
+     all eight; the sharded and the single host control planes replayed
+     alone on the cut; then at 2^16 (a quarter of the events), against
+     single-device engines on the card: the delta exchange (overflowing
+     and sparse rounds counted), the sparse frontier (both branches
+     counted), buckets, the edge-balanced relabeling, a checkpoint
+     restored into a fresh engine, observability (rounds, messages and the
+     per-partition counters summed), and RMAT(16) on the sliced layout (K1
+     once per width run and partition);
   11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
      with a ``lanes`` record of their lane forms; K1-K3 with
-     ``serving_launches``, their counts in phase 12's legs), and as the
-     last line ``{"ok": true, "device": {...}}``.  Phases run in the order
-     1-6, 8-10, 12, 7.
+     ``serving_launches``, their counts in phase 12's legs; K1 with
+     ``sharded_launches``, its count in phase 13's full-width leg, and a
+     ``sharded`` record), and as the last line ``{"ok": true, "device":
+     {...}}``.  Phases run in the order 1-6, 8-10, 12, 13, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -1667,6 +1684,263 @@ def serving_legs(torch, ctx) -> dict:
     return served
 
 
+# --------------------------------- phase 13: the sharded engine, one card --
+SHARDS = 8                 # partitions stacked on the one card
+SHARD_CHECK_FRACTION = 4   # the 2^16 cross-checks run a quarter of the events
+SHARD_DELTA_CAP = 256      # per-partition delta buffer: sparse and overflow
+SHARD_FRONTIER_CAP = 512   # per-partition edge cap: both sparse branches
+
+
+def card_mesh(torch):
+    """SHARDS partitions, all on cuda:0."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((SHARDS,), ("graph",),
+                     devices=[torch.device("cuda", 0)] * SHARDS)
+
+
+def sharded_control_plane_seconds(n: int, e: int, log) -> float:
+    """The sharded engine's host control plane alone: the same runs through
+    SHARDS fresh allocators and window-local ELL planners (numpy, no device
+    work), routed by dst owner as the engine routes them; one planner's
+    overflow rebuilds all of them at the synchronized K."""
+    from repro_torch.core import events as ev
+    from repro_torch.core import ingest
+    from repro_torch.core.backends.ellpack import EllPlanner
+    npp = -(-n // SHARDS)
+    cap = -(-(int(1.3 * e) + 64) // SHARDS)
+    allocs = [ingest.make_allocator(cap) for _ in range(SHARDS)]
+    planners = [EllPlanner(npp, row0=p * npp) for p in range(SHARDS)]
+    t0 = time.perf_counter()
+    for batch in log.runs():
+        if batch.kind == ev.QUERY:
+            continue
+        owner = np.asarray(batch.dst, np.int64) // npp
+        routed = [(p, owner == p) for p in np.unique(owner)]
+        if batch.kind == ev.DEL:
+            for p, sel in routed:
+                allocs[p].plan_dels(batch.src[sel], batch.dst[sel])
+            continue
+        plans = [(p, allocs[p].plan_adds(batch.src[sel], batch.dst[sel],
+                                         batch.w[sel])) for p, sel in routed]
+        if any(planners[p].plan_appends(pl.dst[pl.fresh]) is None
+               for p, pl in plans if len(pl.slots)):
+            coo = [a.active_coo() for a in allocs]
+            k = max(pl.required_k(c[1]) for pl, c in zip(planners, coo))
+            for pl, c in zip(planners, coo):
+                pl.rebuild_host(*c, k=k)
+    return time.perf_counter() - t0
+
+
+def sharded_full_width(torch, ctx) -> dict:
+    """Phase 13's full-width leg: phase 8's cut of the ER stream (2^20
+    vertices) through ``make_engine(relax_backend="ellpack",
+    batch_deletions=True, mesh=SHARDS partitions on cuda:0)``, K1 once per
+    partition and wave, its count set to 0 just before and read just after;
+    bit-identical to phase 3's run at every query (dist, parent, rounds,
+    messages), Dijkstra at the end; K1 on each partition's block against
+    its plain version and timed; both host control planes replayed alone.
+    Returns K1's sharded record."""
+    from repro_torch.core.backends.ellpack import EllPlanner
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.kernels.relax.ref import ellpack_relax_ref
+    c = ctx["er"]
+    n, e, source = c["n"], c["e"], c["sources"][0]
+    log, want, (r_wall, r_waves) = leg_stream(c)
+    n_topo = topo_counts(log)[0]
+    eng = engine(n, e, source, relax_backend="ellpack", mesh=card_mesh(torch))
+    wall, res, (launches,) = run_path(torch, eng, log, [k1.ellpack_relax])
+    assert launches > 0, "[13] the sharded ER leg never launched K1"
+    same_results("[13] sharded ER vs phase 3", res, want)
+    variants = [k1.variant(st.nbr_idx, st.nbr_w) for st in eng.bk.states]
+    live = [np.concatenate(x)
+            for x in zip(*(a.active_coo() for a in eng.allocs))]
+    reached = snapshot_check(n, source, *live, res[-1].dist, res[-1].parent)
+    fill = eng.partition_fill()
+    st0 = eng.bk.states[0]
+    print(f"[13] ER sharded, {SHARDS} partitions on cuda:0, its first "
+          f"{len(log)} events ({n_topo} topology, {len(res)} queries): "
+          f"{wall:.2f} s, {n_topo / wall:.0f} topology events/s (phase 3 to "
+          f"the same query: {r_wall:.2f} s, {n_topo / r_wall:.0f}; ratio "
+          f"{r_wall / wall:.3f}), query p50 {p50_ms(res):.3f} ms, epochs "
+          f"{eng.n_epochs}, waves {eng.n_rounds} (phase 3: {r_waves}), K1 "
+          f"launches {launches} ({launches / eng.n_rounds:.2f} a wave), "
+          f"K={st0.k}, rows {st0.rows} a partition, rebuilds "
+          f"{eng.bk.planners[0].rebuilds}, partition fill {fill.min()}-"
+          f"{fill.max()}; variants {variants}; dist, parent, rounds and "
+          f"messages bit-identical to phase 3 at all {len(res)} queries; "
+          f"final snapshot passes Dijkstra ({reached} reached)")
+    offers = eng.ds.all_gather(eng.dist)[0]
+    err = max(compare(torch, f"K1 partition {p}",
+                      k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w),
+                      ellpack_relax_ref(offers, st.nbr_idx, st.nbr_w))
+              for p, st in enumerate(eng.bk.states))
+    times = kernel_times(
+        torch, lambda: k1.ellpack_relax(offers, st0.nbr_idx, st0.nbr_w), 50)
+    every = kernel_times(torch, lambda: [
+        k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w)
+        for st in eng.bk.states], 20)
+    plain_ms = cuda_ms(torch, lambda: ellpack_relax_ref(
+        offers, st0.nbr_idx, st0.nbr_w), 10)
+    rows, k = st0.nbr_idx.shape
+    live_cells = int(torch.isfinite(st0.nbr_w).sum())
+    nbytes = k1.wave_bytes(offers.numel(), rows, k, live_cells)
+    bound_ms, bound_by = bound(nbytes, 2 * live_cells)
+    print(f"[13] K1 on each partition's block ({rows} x {k}, "
+          f"N={offers.numel()}) bit-identical to its plain version; "
+          f"partition 0 ({live_cells} live cells): {times_text(times)} (plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms = {nbytes / 1e6:.1f} "
+          f"MB at 3.35 TB/s); all {SHARDS} blocks: {times_text(every)}")
+    waves = eng.n_rounds
+    del eng, offers, st0, res
+    single_s = control_plane_seconds(
+        e, log, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
+    shard_s = sharded_control_plane_seconds(n, e, log)
+    print(f"[13] host control plane alone on the cut (numpy): single "
+          f"allocator + ELL planner {single_s:.2f} s, {SHARDS} allocators + "
+          f"{SHARDS} planners {shard_s:.2f} s; sharded run {wall:.2f} s, "
+          f"phase 3's {r_wall:.2f} s")
+    return {"launches": launches, "waves": waves,
+            "launches_per_wave": launches / waves, "variants": variants,
+            "max_abs_err": err, **times, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "all_partitions": every, "events_per_s": n_topo / wall,
+            "phase3_events_per_s": n_topo / r_wall,
+            "control_plane_s": shard_s, "single_control_plane_s": single_s}
+
+
+def sharded_cross_checks(torch) -> dict:
+    """Phase 13 at 2^16 (the first quarter of each recipe's events), SHARDS
+    partitions on cuda:0, each leg held against a single-device engine on
+    the card at the same knobs: ER on the dense ELL block (K1 per
+    partition) with the delta exchange (a buffer small enough that rounds
+    both overflow and stay sparse), the sparse frontier (both branches),
+    buckets, the edge-balanced relabeling, a checkpoint after half the
+    events restored into a fresh engine, observability on (rounds,
+    messages and the per-partition vectors summed against the single
+    engine's counters); RMAT(16) on the sliced layout (K1 per width run and
+    partition).  Returns the sliced leg's K1 launches and waves."""
+    from repro_torch.core import events as ev
+    from repro_torch.core import relax as relax_mod
+    from repro_torch.graphs import partition as part_mod
+    from repro_torch.graphs.csr import width_runs
+    from repro_torch.kernels.relax import relax as k1
+    t0 = time.perf_counter()
+    n, e, sources, log = stream(16, "er")
+    adds = np.asarray(log.kind) == ev.ADD
+    relabel = part_mod.edge_balanced_relabeling(
+        n, np.asarray(log.dst)[adds], SHARDS)
+    log = log[:len(log) // SHARD_CHECK_FRACTION]
+    source = sources[0]
+    ref = engine(n, e, source, relax_backend="ellpack", observability=True)
+    want = ref.ingest_log(log)
+    ref_snap = ref.metrics_snapshot()
+    del ref
+
+    def sharded(**knobs):
+        return engine(n, e, source, relax_backend="ellpack",
+                      mesh=card_mesh(torch), **knobs)
+
+    def check(label, got, *, stats=True, parents=True):
+        assert len(got) == len(want) > 0, label
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert np.array_equal(a.dist, b.dist), f"[13] {label}: query {i}"
+            assert not parents or np.array_equal(a.parent, b.parent), \
+                f"[13] {label}: parent at query {i}"
+            assert not stats or a.epoch_stats == b.epoch_stats, \
+                f"[13] {label}: stats at query {i}"
+
+    # delta exchange: count the rounds that fell back to dense offers
+    eng = sharded(exchange="delta", delta_cap=SHARD_DELTA_CAP)
+    rounds = []
+    real = eng.ds._offers_delta
+
+    def offers_delta(dist, frontier, overflow):
+        rounds.append(overflow)
+        return real(dist, frontier, overflow)
+
+    eng.ds._offers_delta = offers_delta
+    check("delta", eng.ingest_log(log), stats=False)
+    over = sum(rounds)
+    assert 0 < over < len(rounds), f"[13] delta rounds: {over}/{len(rounds)}"
+    print(f"[13] 2^16 ER, delta exchange (buffer {SHARD_DELTA_CAP}): dist "
+          f"and parent equal to the single engine at all {len(want)} "
+          f"queries; {over} of {len(rounds)} relaxation rounds overflowed to "
+          f"dense offers, waves {eng.n_rounds} (single "
+          f"{want[-1].epoch_stats['rounds']})")
+
+    # sparse frontier: the partitions' live-offer counts, read per wave
+    counts = []
+    real_host = relax_mod.host
+
+    def spy(flags):
+        got = real_host(flags)
+        if flags.dim() == 1 and flags.dtype != torch.bool:
+            counts.extend(np.atleast_1d(got).tolist())
+        return got
+
+    relax_mod.host = spy
+    try:
+        got = sharded(frontier_mode="sparse",
+                      frontier_cap=SHARD_FRONTIER_CAP).ingest_log(log)
+    finally:
+        relax_mod.host = real_host
+    check("sparse", got)
+    counts = np.asarray(counts)
+    compact = int((counts <= SHARD_FRONTIER_CAP).sum())
+    assert 0 < compact < len(counts), f"[13] sparse branches: {compact}"
+    print(f"[13] sparse frontier (cap {SHARD_FRONTIER_CAP}): equal to the "
+          f"single engine (dist, parent, rounds, messages); {compact} of "
+          f"{len(counts)} partition waves compacted, the rest took K1")
+
+    check("buckets", sharded(wave_schedule="buckets",
+                             bucket_width=1.0).ingest_log(log), stats=False)
+    check("relabel", sharded(relabel=relabel).ingest_log(log), stats=False,
+          parents=False)
+    half = len(log) // 2
+    eng = sharded()
+    first = eng.ingest_log(log[:half])
+    ckpt = eng.checkpoint()
+    eng = sharded()
+    eng.restore(ckpt)
+    check("checkpoint", first + eng.ingest_log(log[half:]), stats=False)
+    eng = sharded(observability=True)
+    check("observability", eng.ingest_log(log))
+    snap = eng.metrics_snapshot()
+    ct, rct = snap["counters"], ref_snap["counters"]
+    assert (snap["rounds"], snap["messages"]) == (ref_snap["rounds"],
+                                                  ref_snap["messages"])
+    assert int(np.sum(ct["frontier_per_part"])) == rct["frontier"]
+    for kind in ("adds", "dels"):   # a counter is absent until it counts
+        assert int(np.sum(ct.get(f"{kind}_per_part", 0))) == snap[kind] \
+            == ref_snap[kind], kind
+    assert np.array_equal(ct["hist_waves_per_epoch"],
+                          rct["hist_waves_per_epoch"])
+    print(f"[13] buckets, relabel (dist), a checkpoint restored into a "
+          f"fresh engine, observability: equal to the single engine; obs "
+          f"rounds {snap['rounds']} messages {snap['messages']}, adds per "
+          f"partition {np.asarray(ct['adds_per_part']).tolist()}, updates "
+          f"per partition {np.asarray(ct['updates_per_part']).tolist()}")
+
+    # RMAT(16) on the sliced layout: K1 once per width run and partition
+    n, e, sources, log = stream(16, "rmat")
+    log = log[:len(log) // SHARD_CHECK_FRACTION]
+    knobs = dict(relax_backend="sliced", ell_use_kernel=True)
+    single = engine(n, e, sources[0], sliced_fused=False, **knobs)
+    want = single.ingest_log(log)
+    eng = engine(n, e, sources[0], mesh=card_mesh(torch), **knobs)
+    wall, got, (launches,) = run_path(torch, eng, log, [k1.ellpack_relax])
+    assert launches > 0, "[13] the sharded sliced leg never launched K1"
+    same_results("[13] sharded sliced", got, want)
+    runs = len(width_runs(eng.bk.states[0].widths))
+    print(f"[13] 2^16 RMAT sliced: equal to the single unfused sliced engine "
+          f"at all {len(got)} queries (counters too); {wall:.2f} s, K1 "
+          f"launches {launches} over {eng.n_rounds} waves "
+          f"({launches / eng.n_rounds:.1f} a wave; {runs} width runs a "
+          f"partition at the end); phase 13's 2^16 checks in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"sliced_launches": launches, "sliced_waves": eng.n_rounds}
+
+
 # ------------------------------------------ phase 7: the K4 and K5 paths --
 DIN_ITEMS, DIN_DIM, DIN_SLOTS = 10 * 1024 * 1024, 18, 100   # configs/din.py
 
@@ -1880,9 +2154,17 @@ def main() -> int:
 
     # ---- 12. the serving path with observability
     served = serving_legs(torch, ctx)
-    del ctx
     for k in kernels:
         k["serving_launches"] = served[k["name"]]
+
+    # ---- 13. the sharded engine, SHARDS partitions on the card
+    t13 = time.perf_counter()
+    sharded = sharded_full_width(torch, ctx)
+    del ctx
+    sharded.update(sharded_cross_checks(torch))
+    kernels[0]["sharded_launches"] = sharded["launches"]
+    kernels[0]["sharded"] = sharded
+    print(f"[13] phase 13 in {time.perf_counter() - t13:.1f} s")
 
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))

@@ -67,6 +67,28 @@ def dump_obs(eng, args) -> None:
         print(f"wrote prometheus metrics: {args.metrics_out}")
 
 
+def add_obs_flags(p: argparse.ArgumentParser) -> None:
+    """The --trace-out / --log-json / --metrics-out flags (both examples)."""
+    p.add_argument("--trace-out", metavar="PATH",
+                   help="write the engine span trace as Chrome trace-event "
+                        "JSON (a missing parent directory exits 2)")
+    p.add_argument("--log-json", metavar="PATH",
+                   help="write spans + the final metrics_snapshot as JSONL "
+                        "(a missing parent directory exits 2)")
+    p.add_argument("--metrics-out", metavar="PATH",
+                   help="write the final metrics_snapshot as Prometheus "
+                        "text (a missing parent directory exits 2)")
+
+
+def obs_paths(args) -> tuple:
+    """Every observability destination, validated up front (exit 2)."""
+    paths = (args.trace_out, args.log_json, args.metrics_out)
+    for path in paths:
+        if path:
+            out_path_or_exit(path)
+    return paths
+
+
 def trace_bounds(trace: ServingTrace) -> int:
     """The number of vertices a trace implies."""
     topo = trace.kind != ev.QUERY
@@ -97,25 +119,12 @@ def main():
     p.add_argument("--replay-trace", metavar="PATH",
                    help="replay a recorded trace through the engine and "
                         "report the serving metrics (unknown paths exit 2)")
-    p.add_argument("--trace-out", metavar="PATH",
-                   help="write the engine span trace as Chrome trace-event "
-                        "JSON (a missing parent directory exits 2)")
-    p.add_argument("--log-json", metavar="PATH",
-                   help="write spans + the final metrics_snapshot as JSONL "
-                        "(a missing parent directory exits 2)")
-    p.add_argument("--metrics-out", metavar="PATH",
-                   help="write the final metrics_snapshot as Prometheus "
-                        "text (a missing parent directory exits 2)")
+    add_obs_flags(p)
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (default cuda; cpu runs "
                         "the plain torch path)")
     args = p.parse_args()
-    obs_paths = (args.trace_out, args.log_json, args.metrics_out)
-    # fail fast on unwritable observability destinations (exit 2)
-    for path in obs_paths:
-        if path:
-            out_path_or_exit(path)
-    obs_on = any(obs_paths)
+    obs_on = any(obs_paths(args))   # fails fast (exit 2) on a bad path
     knobs = dict(relax_backend=args.backend, observability=obs_on,
                  device=args.device)
 

@@ -9,13 +9,21 @@ and numpy only — nothing of JAX and nothing of ``repro``.
     eng = repro_torch.make_engine(num_vertices=n, edge_capacity=m, source=0,
                                   relax_backend="ellpack")   # on "cuda"
     report = repro_torch.replay_trace(eng, repro_torch.open_trace(path))
+    sharded = repro_torch.make_engine(
+        num_vertices=n, edge_capacity=m, source=0, relax_backend="ellpack",
+        mesh=repro_torch.make_mesh((8,), ("graph",),
+                                   devices=[torch.device("cuda:0")] * 8))
 """
+from repro_torch.core.dist_engine import (ShardedEngineConfig,
+                                          ShardedSSSPDelEngine)
 from repro_torch.core.engine import EngineConfig, SSSPDelEngine
 from repro_torch.core.factory import make_engine
 from repro_torch.graphs.datasets import dataset_to_trace, load_dataset_or_exit
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.serving import (ServingTrace, TraceReader, TraceRecorder,
                                  open_trace, replay_trace)
 
-__all__ = ["EngineConfig", "SSSPDelEngine", "ServingTrace", "TraceReader",
+__all__ = ["EngineConfig", "Mesh", "SSSPDelEngine", "ServingTrace",
+           "ShardedEngineConfig", "ShardedSSSPDelEngine", "TraceReader",
            "TraceRecorder", "dataset_to_trace", "load_dataset_or_exit",
-           "make_engine", "open_trace", "replay_trace"]
+           "make_engine", "make_mesh", "open_trace", "replay_trace"]

@@ -9,16 +9,27 @@ populates ``BACKENDS`` with the ported backends:
 
 ``relax_backend="auto"`` (``AUTO_BACKEND``) is the engine's: dense ELL that
 falls back to sliced when a rebuild reports hub blowup.
+
+``SHARDED_BACKENDS`` holds their sharded coordinators (``ShardedSegment``,
+``ShardedEllpack``, ``ShardedSliced``), which the sharded engine builds
+through ``make_sharded_backend``.
 """
 from repro_torch.core.backends.base import (AUTO_BACKEND, BACKENDS,
-                                            ELL_BLOWUP_RATIO, RelaxBackend,
-                                            make_backend, rank_within_rows,
-                                            register, validate_backend_config)
-from repro_torch.core.backends.segment import SegmentBackend
+                                            ELL_BLOWUP_RATIO,
+                                            SHARDED_BACKENDS, RelaxBackend,
+                                            ShardedBackend, make_backend,
+                                            make_sharded_backend,
+                                            rank_within_rows, register,
+                                            register_sharded,
+                                            validate_backend_config)
+from repro_torch.core.backends.segment import (SegmentBackend, ShardedSegment,
+                                               shard_segment_wave)
 from repro_torch.core.backends.ellpack import (EllPlanner, EllState,
-                                               EllpackBackend, ell_append,
-                                               ell_delete, ell_update_min)
-from repro_torch.core.backends.sliced import (SlicedBackend, SlicedEllPlanner,
+                                               EllpackBackend, ShardedEllpack,
+                                               ell_append, ell_delete,
+                                               ell_update_min)
+from repro_torch.core.backends.sliced import (ShardedSliced, SlicedBackend,
+                                              SlicedEllPlanner,
                                               SlicedEllState, SlicedPlan,
                                               sliced_append, sliced_delete,
                                               sliced_spill, sliced_update_min)
@@ -26,8 +37,12 @@ from repro_torch.core.backends.sliced import (SlicedBackend, SlicedEllPlanner,
 __all__ = [
     "AUTO_BACKEND", "BACKENDS", "ELL_BLOWUP_RATIO", "RelaxBackend",
     "make_backend", "rank_within_rows", "register", "validate_backend_config",
-    "SegmentBackend", "EllpackBackend", "EllPlanner", "EllState",
+    "SHARDED_BACKENDS", "ShardedBackend", "make_sharded_backend",
+    "register_sharded",
+    "SegmentBackend", "ShardedSegment", "shard_segment_wave",
+    "EllpackBackend", "ShardedEllpack", "EllPlanner", "EllState",
     "ell_append", "ell_delete", "ell_update_min",
-    "SlicedBackend", "SlicedEllPlanner", "SlicedEllState", "SlicedPlan",
-    "sliced_append", "sliced_delete", "sliced_spill", "sliced_update_min",
+    "SlicedBackend", "ShardedSliced", "SlicedEllPlanner", "SlicedEllState",
+    "SlicedPlan", "sliced_append", "sliced_delete", "sliced_spill",
+    "sliced_update_min",
 ]

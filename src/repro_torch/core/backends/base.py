@@ -23,16 +23,23 @@ import torch
 if TYPE_CHECKING:
     from repro_torch.core.buckets import PendingState
     from repro_torch.core.delete import DeleteStats
+    from repro_torch.core.distributed import DistributedSSSP, ShardWave
     from repro_torch.core.ingest import PlannedAdds
     from repro_torch.core.relax import RelaxStats
     from repro_torch.core.state import EdgePool, SSSPState
 
 
 BACKENDS: dict[str, type["RelaxBackend"]] = {}
+SHARDED_BACKENDS: dict[str, type["ShardedBackend"]] = {}
 
 
 def register(cls: type["RelaxBackend"]) -> type["RelaxBackend"]:
     BACKENDS[cls.name] = cls
+    return cls
+
+
+def register_sharded(cls: type["ShardedBackend"]) -> type["ShardedBackend"]:
+    SHARDED_BACKENDS[cls.name] = cls
     return cls
 
 
@@ -65,7 +72,8 @@ def validate_backend_config(cfg: Any) -> None:
     """Raise ``ValueError`` at construction time for an unknown
     backend/schedule/frontier mode, a bad ``bucket_width``, or backend,
     schedule or frontier knobs that do not apply to the selected backend,
-    schedule or mode (the reference's rules and messages)."""
+    schedule or mode (the reference's rules and messages).  Shared by
+    ``EngineConfig`` and ``ShardedEngineConfig``."""
     name = cfg.relax_backend
     if name not in BACKENDS and name != AUTO_BACKEND:
         raise ValueError(f"unknown relax_backend {name!r}; valid backends: "
@@ -99,6 +107,10 @@ def validate_backend_config(cfg: Any) -> None:
                          f"{cfg.frontier_cap}")
 
     def is_set(k: str) -> bool:
+        # a knob the config does not have (the sharded config has no
+        # sliced_fused / frontier_kernel) is unset
+        if k not in defaults:
+            return False
         v = getattr(cfg, k)
         return v != defaults[k] and not (k in _OFF_IS_UNSET and v is False)
 
@@ -222,6 +234,88 @@ def make_backend(name: str, cfg: Any, *, use_kernel: bool = False,
                          f"{sorted(BACKENDS)}")
     return BACKENDS[name](cfg, cfg.num_vertices, use_kernel=use_kernel,
                           device=device, **options)
+
+
+# ------------------------------------------------------------ sharded side --
+class ShardedBackend:
+    """Sharded coordinator for one backend (the sharded engine's side of the
+    protocol): one shard-local planner per partition and one layout block
+    per partition, each block its own tensors on the partition's device.
+
+    dst-owner edge placement makes every partition's in-edges local, so
+    partition ``p``'s layout rows are exactly its vertex window
+    ``[p*npp, (p+1)*npp)`` (the planners' ``row0``).  Geometry — the ELL
+    width K, the sliced widths and overflow capacity — is synchronized
+    across partitions at rebuild time, and any partition's overflow
+    rebuilds ALL of them from the per-partition host mirrors, as in the
+    reference (whose shard_map needs one block shape); so rebuild events
+    and layouts equal the reference's partition for partition.
+
+    The reference concatenates the blocks into globally sharded arrays and
+    patches them with masked scatters inside its jitted epochs.  Here the
+    host routes every patch to its partition and writes exact local
+    indices in place — ADD patches in ``stage_adds`` before the epoch, DEL
+    tombstones in ``shard_del_patch`` inside it — so there is nothing to
+    hand back (the reference's ``update_del_arrays``).
+    """
+
+    name: ClassVar[str]
+
+    def __init__(self, cfg: Any, ds: "DistributedSSSP", allocs: list, *,
+                 use_kernel: bool = False):
+        self.cfg = cfg
+        self.ds = ds
+        self.allocs = allocs
+        self.use_kernel = use_kernel
+        self.P, self.npp = ds.P, ds.npp
+
+    def stage_adds(self, plans: list[tuple[int, "PlannedAdds"]]) -> None:
+        """Patch the layout for one ADD batch (per-partition plans, global
+        ids), rebuilding all partitions from the mirrors on any partition's
+        overflow."""
+
+    def shard_del_patch(self, p: int, dst: np.ndarray,
+                        src: np.ndarray) -> None:
+        """Tombstone partition ``p``'s deleted edges (global ids, padded) in
+        its layout block, in place; a no-op without a layout."""
+
+    def shard_wave(self, p: int, pool: Any) -> "ShardWave":
+        """Partition ``p``'s wave: ``wave(offers) -> (best f32[npp], arg
+        i32[npp])`` — per owned row, the min over its live in-edges of
+        ``offers[src] + w`` and the smallest minimizing global src id.
+        ``offers`` is the gathered global vector on the partition's device
+        (+inf for sources that offer nothing); ``pool`` is the partition's
+        COO pool slice."""
+        raise NotImplementedError
+
+    def restore(self) -> None:
+        """Rebuild every partition's layout from the per-partition
+        mirrors."""
+
+    def layout_counters(self) -> dict[str, int]:
+        """Sharded twin of ``RelaxBackend.layout_counters``.  Rebuilds are
+        coupled (every planner advances together), so the max over the
+        planners counts rebuild events; overflow-lane placements are per
+        partition and sum."""
+        pls = getattr(self, "planners", None) or []
+        return {
+            "rebuilds": max((int(getattr(p, "rebuilds", 0)) for p in pls),
+                            default=0),
+            "overflow_hits": sum(int(getattr(p, "spills", 0)) for p in pls),
+        }
+
+    def invariants(self) -> dict[str, bool]:
+        """The layout's occupancy invariants, held in every partition."""
+        return {}
+
+
+def make_sharded_backend(name: str, cfg: Any, ds: "DistributedSSSP",
+                         allocs: list, *,
+                         use_kernel: bool = False) -> ShardedBackend:
+    if name not in SHARDED_BACKENDS:
+        raise ValueError(f"unknown relax_backend {name!r}; valid backends: "
+                         f"{sorted(SHARDED_BACKENDS)}")
+    return SHARDED_BACKENDS[name](cfg, ds, allocs, use_kernel=use_kernel)
 
 
 def rank_within_rows(rows: np.ndarray) -> np.ndarray:

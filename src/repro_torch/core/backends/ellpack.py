@@ -23,6 +23,11 @@ same frontier evolution, same smallest-src-id tie-break — so (dist, parent)
 are bit-identical to the segment backend and to the reference.  Each epoch
 takes one tree or a lane stack ([S, N], the reference's ``ell_*_batched``);
 a lane stack's wave is ONE K1 launch for all S lanes over the shared block.
+
+Sharded side (``ShardedEllpack``): one window-local planner per partition
+and one ELL block per partition on its device; the sharded wave launches K1
+once per partition, on that partition's ``(rows_pp, K)`` block against the
+gathered global offers.
 """
 from __future__ import annotations
 
@@ -36,11 +41,14 @@ from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
 from repro_torch.core import ingest, relax
 from repro_torch.core.backends.base import (ELL_BLOWUP_RATIO, RelaxBackend,
-                                            rank_within_rows, register)
+                                            ShardedBackend, rank_within_rows,
+                                            register, register_sharded)
 from repro_torch.core.relax import RelaxStats, converged_loop
 from repro_torch.core.state import INF, SSSPState
 from repro_torch.graphs import csr as csr_mod
 from repro_torch.kernels.relax.ops import relax_wave
+from repro_torch.kernels.relax.ref import ellpack_relax_ref
+from repro_torch.kernels.relax.relax import ellpack_relax
 
 _next_pow2 = csr_mod.next_pow2
 
@@ -151,11 +159,16 @@ class EllPlanner:
     Rows are padded up to a multiple of ``block_rows`` exactly as in the
     reference, so block shapes and rebuild counts compare one to one (the
     CUDA kernel itself takes any row count).
+
+    ``row0`` makes the planner window-local: it plans rows for the vertex
+    window ``[row0, row0 + num_vertices)`` and takes *global* destination
+    ids everywhere — the sharded engine runs one planner per partition.
     """
 
     def __init__(self, num_vertices: int, *, block_rows: int = 256,
-                 init_k: int = 8):
+                 init_k: int = 8, row0: int = 0):
         self.n = num_vertices
+        self.row0 = row0
         bm = min(block_rows, _next_pow2(max(num_vertices, 1)))
         self.rows = -(-num_vertices // bm) * bm      # ceil to block multiple
         self.k = max(1, init_k)
@@ -169,7 +182,8 @@ class EllPlanner:
                 np.zeros(self.rows, np.int32))
 
     def plan_appends(self, rows: np.ndarray) -> np.ndarray | None:
-        """Assign a distinct cell past the fill mark to each fresh edge.
+        """Assign a distinct cell past the fill mark to each fresh edge
+        (``rows``: global dst ids within this planner's window).
 
         Returns kpos i32[m] (and advances the fill marks), or None when any
         row would overflow K — the caller must rebuild instead.
@@ -177,7 +191,7 @@ class EllPlanner:
         m = len(rows)
         if m == 0:
             return np.empty(0, np.int32)
-        rows = np.asarray(rows, np.int64)
+        rows = np.asarray(rows, np.int64) - self.row0
         counts = np.bincount(rows, minlength=self.n)
         if int((self.fill[:self.n] + counts[:self.n]).max(initial=0)) > self.k:
             return None
@@ -187,7 +201,8 @@ class EllPlanner:
 
     def required_k(self, dst: np.ndarray) -> int:
         """The K the doubling policy wants for a live edge set."""
-        deg = (np.bincount(np.asarray(dst, np.int64), minlength=self.n)
+        deg = (np.bincount(np.asarray(dst, np.int64) - self.row0,
+                           minlength=self.n)
                if len(dst) else np.zeros(self.n, np.int64))
         return max(self.k, _next_pow2(max(2 * int(deg.max(initial=0)), 1)))
 
@@ -209,7 +224,8 @@ class EllPlanner:
                 f"avoids this", RuntimeWarning, stacklevel=3)
             self._warned_blowup = True
         idx, ww, fill = csr_mod.ell_from_coo(
-            self.n, src, dst, w, k=self.k, n_rows=self.rows)
+            self.n, src, dst, w, k=self.k, n_rows=self.rows,
+            row0=self.row0)
         self.fill = fill
         self.rebuilds += 1
         return idx, ww, fill
@@ -386,3 +402,86 @@ class EllpackBackend(RelaxBackend):
 
     def invariants(self):
         return ell_invariants(self.state)
+
+
+# ----------------------------------------------------------- sharded side --
+@register_sharded
+class ShardedEllpack(ShardedBackend):
+    """One window-local EllPlanner per partition and one ELL block per
+    partition (vertex ``v`` of partition ``p`` is row ``v - p*npp`` of
+    block ``p``).  K is synchronized at rebuild time (the max of the
+    partitions' doubling policies), so every block has one shape, and any
+    partition's overflow rebuilds all of them from the per-partition
+    mirrors — the reference's coupled rebuild."""
+
+    name = "ellpack"
+
+    def __init__(self, cfg, ds, allocs, *, use_kernel=False):
+        super().__init__(cfg, ds, allocs, use_kernel=use_kernel)
+        self.planners = self._mk_planners()
+        self.rows_pp = self.planners[0].rows
+        self.states = [EllState.from_host(*pl.empty_host(), dev)
+                       for pl, dev in zip(self.planners, ds.devices)]
+
+    def _mk_planners(self) -> list[EllPlanner]:
+        return [EllPlanner(self.npp, block_rows=self.cfg.ell_block_rows,
+                           init_k=self.cfg.ell_init_k, row0=p * self.npp)
+                for p in range(self.P)]
+
+    def _dev(self, p: int, *arrays: np.ndarray) -> list[torch.Tensor]:
+        return [torch.as_tensor(a).to(self.ds.devices[p]) for a in arrays]
+
+    def stage_adds(self, plans):
+        app, upd = [], []
+        for p, plan in plans:
+            fresh = plan.fresh
+            rows = plan.dst[fresh].astype(np.int64)
+            kpos = self.planners[p].plan_appends(rows)
+            if kpos is None:
+                self._rebuild_all()   # the mirrors already hold this batch
+                return
+            row0 = p * self.npp
+            if len(rows):
+                app.append((p, (rows - row0).astype(np.int32), kpos,
+                            plan.src[fresh], plan.w[fresh]))
+            if not fresh.all():
+                u = ~fresh
+                upd.append((p, (plan.dst[u] - row0).astype(np.int32),
+                            plan.src[u], plan.w[u]))
+        for p, *arrays in app:
+            ell_append(self.states[p], *self._dev(p, *ingest.pad_pow2(
+                *arrays)))
+        for p, *arrays in upd:
+            ell_update_min(self.states[p], *self._dev(p, *ingest.pad_pow2(
+                *arrays)))
+
+    def shard_del_patch(self, p, dst, src):
+        ell_delete(self.states[p], *self._dev(
+            p, (dst - p * self.npp).astype(np.int32), src))
+
+    def _rebuild_all(self) -> None:
+        coo = [a.active_coo() for a in self.allocs]
+        k = max(pl.required_k(c[1]) for pl, c in zip(self.planners, coo))
+        self.states = [
+            EllState.from_host(*pl.rebuild_host(*c, k=k), dev)
+            for pl, c, dev in zip(self.planners, coo, self.ds.devices)]
+
+    def restore(self):
+        self.planners = self._mk_planners()
+        self._rebuild_all()
+
+    def shard_wave(self, p, pool):
+        """K1 (or its plain version) on partition ``p``'s block: one launch
+        per partition and wave."""
+        st, npp = self.states[p], self.npp
+        fn = ellpack_relax if self.use_kernel else ellpack_relax_ref
+
+        def wave(offers):
+            best, arg = fn(offers, st.nbr_idx, st.nbr_w)
+            return best[:npp], arg[:npp]
+
+        return wave
+
+    def invariants(self):
+        got = [ell_invariants(st) for st in self.states]
+        return {k: all(g[k] for g in got) for k in got[0]}

@@ -25,6 +25,12 @@ max/min-reduce).  The reference finds a deleted edge's overflow entry with a
 dense (batch x capacity) match matrix, which eager torch would materialise
 (10^12 cells at a 2^17 DEL batch over a 2^23 lane); here the live entries'
 ``(dst << 32) | src`` keys are sorted once per patch and searched.
+
+Sharded side (``ShardedSliced``): one window-local planner and one hybrid
+layout per partition, widths synchronized across partitions; its wave is
+the reference's unfused one — K1 once per width run of the partition's
+slices, then ``overflow_min`` and ``combine_lanes`` (the reference's
+sharded wave does not take K2).
 """
 from __future__ import annotations
 
@@ -37,8 +43,9 @@ import torch
 from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
 from repro_torch.core import ingest, relax
-from repro_torch.core.backends.base import (RelaxBackend, rank_within_rows,
-                                            register)
+from repro_torch.core.backends.base import (RelaxBackend, ShardedBackend,
+                                            rank_within_rows, register,
+                                            register_sharded)
 from repro_torch.core.relax import RelaxStats, converged_loop
 from repro_torch.core.state import INF, SSSPState
 from repro_torch.graphs import csr as csr_mod
@@ -333,11 +340,16 @@ class SlicedEllPlanner:
     monotone per-slice capacity doubling (each slice's width doubles
     independently, capped at ``hub_k``; the overflow capacity doubles when
     the live surplus outgrows it).  A row whose fill reaches ``hub_k`` is a
-    hub: its further in-edges spill to the overflow segment."""
+    hub: its further in-edges spill to the overflow segment.
+
+    ``row0`` makes the planner window-local: it takes *global* destination
+    ids for the vertex window ``[row0, row0 + num_vertices)`` and emits
+    positions and rows in its own local space."""
 
     def __init__(self, num_vertices: int, *, slice_rows: int = 256,
-                 hub_k: int = 32, init_k: int = 2):
+                 hub_k: int = 32, init_k: int = 2, row0: int = 0):
         self.n = num_vertices
+        self.row0 = row0
         self.sr = min(_next_pow2(max(slice_rows, 1)),
                       _next_pow2(max(num_vertices, 1)))
         self.rows = -(-num_vertices // self.sr) * self.sr
@@ -379,7 +391,7 @@ class SlicedEllPlanner:
         zf = np.empty(0, np.float32)
         if m == 0:
             return SlicedPlan(z32, z32, z32, z32, zf, z32, z32, z32, zf)
-        rows = np.asarray(rows, np.int64)
+        rows = np.asarray(rows, np.int64) - self.row0
         kcand = self.fill[rows] + rank_within_rows(rows)
         to_ell = kcand < self.rowk[rows]
         over = ~to_ell
@@ -409,8 +421,8 @@ class SlicedEllPlanner:
         edge set."""
         deg = np.zeros(self.rows, np.int64)
         if len(dst):
-            deg[:self.n] = np.bincount(np.asarray(dst, np.int64),
-                                       minlength=self.n)
+            deg[:self.n] = np.bincount(
+                np.asarray(dst, np.int64) - self.row0, minlength=self.n)
         capped = np.minimum(deg, self.hub_k)
         slice_max = capped.reshape(self.n_slices, self.sr).max(axis=1)
         widths = [
@@ -431,7 +443,7 @@ class SlicedEllPlanner:
             csr_mod.sliced_ell_from_coo(
                 self.n, src, dst, w, slice_rows=self.sr, hub_k=self.hub_k,
                 n_rows=self.rows, widths=self.widths,
-                overflow_capacity=self.ocap)
+                overflow_capacity=self.ocap, row0=self.row0)
         self.fill = fill
         self.ofill = n_over
         self.rebuilds += 1
@@ -528,3 +540,110 @@ class SlicedBackend(RelaxBackend):
 
     def invariants(self):
         return sliced_invariants(self.state, width=self.planner.max_width)
+
+
+# ----------------------------------------------------------- sharded side --
+@register_sharded
+class ShardedSliced(ShardedBackend):
+    """One window-local SlicedEllPlanner per partition and one hybrid
+    layout per partition on its device (rows, flat cells and overflow
+    entries in the partition's local space).  Per-slice widths and the
+    overflow capacity are synchronized at rebuild time (elementwise max of
+    the partitions' policies), so every partition shares one geometry, and
+    any partition's exhaustion rebuilds all of them from the mirrors."""
+
+    name = "sliced"
+
+    def __init__(self, cfg, ds, allocs, *, use_kernel=False):
+        super().__init__(cfg, ds, allocs, use_kernel=use_kernel)
+        self.planners = self._mk_planners()
+        self.states = [
+            SlicedEllState.from_host(pl, pl.empty_host(), dev,
+                                     with_blocks=False)
+            for pl, dev in zip(self.planners, ds.devices)]
+
+    def _mk_planners(self) -> list[SlicedEllPlanner]:
+        return [SlicedEllPlanner(
+            self.npp, slice_rows=self.cfg.sliced_slice_rows,
+            hub_k=self.cfg.sliced_hub_k, init_k=self.cfg.sliced_init_k,
+            row0=p * self.npp) for p in range(self.P)]
+
+    @property
+    def widths(self) -> list[int]:
+        return self.planners[0].widths    # synchronized across partitions
+
+    def _dev(self, p: int, *arrays: np.ndarray) -> list[torch.Tensor]:
+        return [torch.as_tensor(a).to(self.ds.devices[p]) for a in arrays]
+
+    def stage_adds(self, plans):
+        app, spill, upd = [], [], []
+        for p, plan in plans:
+            fresh = plan.fresh
+            sp = self.planners[p].plan_appends(
+                plan.dst[fresh].astype(np.int64), plan.src[fresh],
+                plan.w[fresh])
+            if sp is None:
+                self._rebuild_all()   # the mirrors already hold this batch
+                return
+            if len(sp.pos):
+                app.append((p, sp.pos, sp.rows, sp.kpos, sp.src, sp.w))
+            if len(sp.opos):
+                spill.append((p, sp.opos, sp.osrc, sp.orows, sp.ow))
+            if not fresh.all():
+                u = ~fresh
+                upd.append((p, (plan.dst[u] - p * self.npp).astype(np.int32),
+                            plan.src[u], plan.w[u]))
+        for p, *arrays in app:
+            sliced_append(self.states[p], *self._dev(p, *ingest.pad_pow2(
+                *arrays)))
+        for p, *arrays in spill:
+            sliced_spill(self.states[p], *self._dev(p, *ingest.pad_pow2(
+                *arrays)))
+        for p, *arrays in upd:
+            sliced_update_min(self.states[p], *self._dev(
+                p, *ingest.pad_pow2(*arrays)),
+                width=self.planners[p].max_width)
+
+    def shard_del_patch(self, p, dst, src):
+        sliced_delete(self.states[p], *self._dev(
+            p, (dst - p * self.npp).astype(np.int32), src),
+            width=self.planners[p].max_width)
+
+    def _rebuild_all(self) -> None:
+        coo = [a.active_coo() for a in self.allocs]
+        want_w, want_ocap = list(self.widths), self.planners[0].ocap
+        for pl, c in zip(self.planners, coo):
+            w_p, ocap_p = pl.required_geometry(c[1])
+            want_w = [max(a, b) for a, b in zip(want_w, w_p)]
+            want_ocap = max(want_ocap, ocap_p)
+        for pl in self.planners:
+            pl.widths, pl.ocap = list(want_w), want_ocap
+        self.states = [
+            SlicedEllState.from_host(pl, pl.rebuild_host(*c), dev,
+                                     with_blocks=False)
+            for pl, c, dev in zip(self.planners, coo, self.ds.devices)]
+
+    def restore(self):
+        self.planners = self._mk_planners()
+        self._rebuild_all()
+
+    def shard_wave(self, p, pool):
+        """Partition ``p``'s unfused hybrid wave: K1 (or its plain version)
+        once per width run of its slices, the overflow lane, the combine."""
+        st, npp = self.states[p], self.npp
+        orow = st.odst.clamp(0, npp - 1)
+        fn = ellpack_relax if self.use_kernel else ellpack_relax_ref
+
+        def wave(offers):
+            best, arg = sliced_gather_min(
+                offers, st.flat_idx, st.flat_w, widths=st.widths,
+                slice_rows=st.slice_rows, relax=fn)
+            obest, oarg = overflow_min(offers, st.osrc, orow, st.ow, npp)
+            return combine_lanes(best[:npp], arg[:npp], obest, oarg)
+
+        return wave
+
+    def invariants(self):
+        got = [sliced_invariants(st, width=pl.max_width)
+               for st, pl in zip(self.states, self.planners)]
+        return {k: all(g[k] for g in got) for k in got[0]}

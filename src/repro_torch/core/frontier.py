@@ -26,7 +26,10 @@ path instead:
   * their lane-stack forms (``sparse_*_batched``), which run the one-tree
     epoch lane by lane, K3 once per lane and wave.  The reference vmaps
     them, under which ``lax.cond`` runs both ladder branches, and calls
-    them correctness-grade; a K3 lane form is still to come.
+    them correctness-grade; a K3 lane form is still to come;
+  * ``wrap_shard_wave``, the sharded engine's sparse waves: each
+    partition's live-offer edges compacted and scatter-min'd (no K3), the
+    backend's own wave where a partition's count exceeds the cap.
 
 The sparse wave's candidates are exactly the live out-edges of frontier
 vertices — the set the dense wave's ``active & frontier[src]`` mask selects
@@ -379,3 +382,48 @@ def sparse_drain_batched(sssp: SSSPState, edges: EdgePool,
             buckets.PendingState(torch.stack([o[1].push for o in out]),
                                  torch.stack([o[1].pull for o in out])),
             _stack_stats([o[2] for o in out]), _occupancy(out))
+
+
+# ------------------------------------------------------------- sharded wave --
+def wrap_shard_wave(waves, pools, npp: int, cap: int):
+    """The sharded engine's sparse mesh wave: per-partition edge-worklist
+    compaction around the backend's waves (``waves[p]``, one per
+    partition).
+
+    The epochs patch every partition's COO pool slice (``pools[p]``) for
+    EVERY backend, so a partition whose live-offer edges number at most
+    ``cap`` evaluates the segment-style wave over just those edges,
+    whatever layout its dense wave uses — the same candidate multiset and
+    tie rule, so bit-identical.  ``offers`` already carry the frontier
+    masking, so membership is ``active & isfinite(offers[src])``; unmasked
+    pull waves overflow the cap and take the dense wave.  The reference
+    branches on the device (``lax.cond``); here the P partitions' counts
+    are read back in ONE host sync per wave and each partition branches on
+    the host — a sparse wave's second read, as the single-device sparse
+    wave reads its ladder's counts."""
+
+    def wave(offers):
+        lives = [e.active & torch.isfinite(o[e.src])
+                 for e, o in zip(pools, offers)]
+        ecs = [torch.cumsum(m.to(torch.int32), 0, dtype=torch.int32)
+               for m in lives]
+        dev0 = offers[0].device
+        counts = relax.host(torch.stack([c[-1].to(dev0) for c in ecs]))
+        out = []
+        for p, (e, o, c, cnt) in enumerate(zip(pools, offers, ecs, counts)):
+            if cnt > cap:
+                out.append(waves[p](o))
+                continue
+            slots = torch.arange(1, int(cnt) + 1, dtype=torch.int32,
+                                 device=o.device)
+            at = torch.searchsorted(c, slots).clamp(max=len(c) - 1)
+            cs, cd, cw = e.src[at], e.dst[at], e.w[at]
+            cand = o[cs] + cw
+            dl = (cd - p * npp).clamp(0, npp - 1).long()
+            best = relax.segment_min(cand, dl, npp, INF)
+            hit = (cand == best[dl]) & (cand < INF)
+            out.append((best, relax.segment_min(
+                torch.where(hit, cs, relax.BIG), dl, npp, relax.BIG)))
+        return out
+
+    return wave

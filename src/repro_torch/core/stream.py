@@ -141,6 +141,11 @@ class StreamEngineBase:
         stacked state when ``lane`` is given, everything otherwise."""
         raise NotImplementedError
 
+    def _obs_pre_snapshot(self) -> None:
+        """Engine-specific lazy folds just before the registry snapshot
+        (``metrics_snapshot`` only) — the sharded engine's per-partition
+        touched-vertex attribution: per readout, never per epoch."""
+
     def serves(self, source: int) -> bool:
         """Whether a routed ``query(source=...)`` would be answered from a
         dedicated lane/tree of this engine."""
@@ -239,6 +244,7 @@ class StreamEngineBase:
         occupancy.  An armed watchdog reviews the snapshot for divergence;
         its findings land in the *next* snapshot's counters (§10.8)."""
         if self.obs.enabled:
+            self._obs_pre_snapshot()
             self.obs.flush_histograms()
         counters = self.obs.counters.snapshot()
         snap = {

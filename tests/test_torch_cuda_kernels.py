@@ -8,8 +8,11 @@ engines on the plain versions (dense ELL on K1; sliced on K2 and on K1 per
 run of slices; the sparse frontier on K3; batched multi-source and
 bucketed engines on the lane forms), and observability on the kernels'
 engines (bit-identical to it off), the card's histogram bucketing and the
-one-copy counter snapshot.  Every test here needs a CUDA device and skips
-without one (decided inside the test).  Tolerance: 0 — bit-identical — except the gradients of
+one-copy counter snapshot; K1 on each partition's block of the sharded
+engine's ELL and sliced layouts, and the sharded engine (P = 4 partitions
+stacked on the card) against the single-device engine on the card.
+Every test here needs a CUDA device and skips without one (decided
+inside the test).  Tolerance: 0 — bit-identical — except the gradients of
 ``neighbor_reduce`` and ``bag_lookup``, whose backward scatters with
 ``index_add_``: on the card its atomics add in no fixed order, so the
 kernel route's gradient is held against the plain route's within rtol =
@@ -907,3 +910,86 @@ def test_counter_snapshot_is_one_copy_from_the_card(cuda, monkeypatch):
     monkeypatch.undo()
     assert reads == ["to"], reads
     assert snap["pending_push"] > 0
+
+
+# ----------------------------------------------------------- sharded engine --
+def _er12_stream():
+    n, src, dst, w = generators.erdos_renyi(1 << 12, 8 << 12, seed=7)
+    win = int(0.3 * len(src))
+    log = ev.interleave_queries(window.sliding_window_stream(
+        src, dst, w, window=win, delta=0.3, seed=0), win // 10)
+    return n, len(src) + 64, log
+
+
+def _card_mesh(p):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((p,), ("graph",), devices=[torch.device("cuda:0")] * p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,init_k", [("ellpack", 2), ("ellpack", 8),
+                                            ("sliced", 1)])
+def test_k1_on_each_partition_block_of_a_sharded_layout(cuda, backend,
+                                                        init_k):
+    """K1 on every partition's own block (dense ELL: the whole block;
+    sliced: each width run, a view at its cell offset) against the gathered
+    offers, bit for bit; the variant follows ``variant``'s rule — each
+    dense block is its own contiguous tensor, so it takes "vector" wherever
+    K % 4 == 0."""
+    n, cap, log = _er12_stream()
+    knobs = (dict(ell_init_k=init_k) if backend == "ellpack" else
+             dict(sliced_slice_rows=64, sliced_hub_k=8, sliced_init_k=init_k))
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      mesh=_card_mesh(4), relax_backend=backend,
+                      batch_deletions=True, **knobs)
+    eng.ingest_log(log[:len(log) // 2])
+    offers = eng.ds.all_gather(eng.dist)
+    seen = set()
+    for p, st in enumerate(eng.bk.states):
+        if backend == "ellpack":
+            blocks = [(st.nbr_idx, st.nbr_w)]
+            assert variant(*blocks[0]) == ("vector" if st.k % 4 == 0
+                                           else "scalar")
+        else:
+            blocks, off = [], 0
+            for k, cnt in csr.width_runs(st.widths):
+                rows = st.slice_rows * cnt
+                blocks.append((st.flat_idx[off:off + rows * k].view(rows, k),
+                               st.flat_w[off:off + rows * k].view(rows, k)))
+                off += rows * k
+        for idx, w in blocks:
+            seen.add(variant(idx, w))
+            _k1_equal(offers[p], idx, w)
+    assert seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(relax_backend="ellpack"),
+    dict(relax_backend="sliced", exchange="delta", delta_cap=64,
+         sliced_slice_rows=64, sliced_hub_k=8),
+    dict(relax_backend="ellpack", wave_schedule="buckets", bucket_width=1.0,
+         frontier_mode="sparse", frontier_cap=64)])
+def test_sharded_engine_on_the_card_matches_single_device(cuda, knobs):
+    """The sharded engine at P = 4 on one card (K1 per partition and wave)
+    equals the single-device engine on the card at every query — (dist,
+    parent) always, the stats too under the allgather rounds schedule."""
+    n, cap, log = _er12_stream()
+    before = ellpack_relax.launches
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      mesh=_card_mesh(4), batch_deletions=True, **knobs)
+    got = eng.ingest_log(log)
+    assert ellpack_relax.launches > before
+    single = {k: v for k, v in knobs.items()
+              if k not in ("exchange", "delta_cap", "frontier_mode",
+                           "frontier_cap")}
+    ref = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, **single)
+    want = ref.ingest_log(log)
+    if "exchange" in knobs or "wave_schedule" in knobs:
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.dist, b.dist)
+            np.testing.assert_array_equal(a.parent, b.parent)
+    else:
+        _same_runs(got, want)

@@ -156,13 +156,18 @@ def test_validate_state_and_stability_match_reference():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(partitions=2), dict(partitions=2, sources=(0, 1)),
-    dict(mesh=None), dict(relabel=True)])
+    dict(partitions=1, sources=(0, 1)), dict(partitions=1, sources=(3,)),
+    dict(mesh="cpu*2", sources=(0, 1)),
+    dict(mesh="cpu*2", sources=(0, 1), relax_backend="ellpack")])
 def test_later_slices_raise_not_yet_ported(knobs):
-    """The sharded engine (``partitions=``, ``mesh=``, ``relabel=``) is
-    still to come (the bucketed schedule, ``sources`` and observability are
-    ported: test_torch_buckets.py, test_torch_serving.py,
-    test_torch_obs.py)."""
+    """The sharded engine is ported for one source (test_torch_dist_engine
+    .py); its batched ``sources=`` lanes are still to come, and the
+    sharded config says so (the single-device engine serves ``sources``:
+    test_torch_serving.py)."""
+    if knobs.get("mesh") == "cpu*2":
+        from repro_torch.launch.mesh import make_mesh
+        knobs = dict(knobs, mesh=make_mesh((2,), ("graph",),
+                                           devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="not yet ported"):
         make_engine(num_vertices=8, edge_capacity=8, device="cpu", **knobs)
 

@@ -43,7 +43,11 @@ SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.obs.recorder", "repro_torch.obs.spans",
                  "repro_torch.obs.watchdog", "repro_torch.serving",
                  "repro_torch.serving.metrics", "repro_torch.serving.replay",
-                 "repro_torch.serving.trace", "repro_torch.graphs.datasets")
+                 "repro_torch.serving.trace", "repro_torch.graphs.datasets",
+                 "repro_torch.core.distributed",
+                 "repro_torch.core.dist_engine",
+                 "repro_torch.graphs.partition", "repro_torch.launch",
+                 "repro_torch.launch.mesh")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -67,7 +71,9 @@ def _imported_modules(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
-                            ROOT / "examples" / "torch_streaming_sssp.py"],
+                            ROOT / "examples" / "torch_streaming_sssp.py",
+                            ROOT / "examples"
+                            / "torch_sharded_streaming_sssp.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_jax_or_repro(path):
     bad = {m for m in _imported_modules(path)
