@@ -119,13 +119,34 @@ Phases (any failure raises and exits non-zero):
      restored into a fresh engine, observability (rounds, messages and the
      per-partition counters summed), and RMAT(16) on the sliced layout (K1
      once per width run and partition);
+  14. the sharded lanes and the paper's baselines: phase 13's mesh and cut
+     with ``sources=`` phase 9's LANES vertices, K1's lane form once per
+     partition and wave (its counts set to 0 just before and read just
+     after; launches = SHARDS x mesh waves), every lane equal to phase 9's
+     run at every query (dist, parent, per-lane rounds and messages), lane
+     0 to phase 13's, Dijkstra for every lane; source-events/s beside phase
+     9's; K1's lane form on each partition's block against its plain
+     version (variant per partition) and timed three ways, one block and
+     all eight, with its bound (``relax.wave_bytes(lanes=4)``); the
+     ReMo-from-scratch baseline at full width on the same cut, queried at
+     its 7th, 14th and 21st query points (dist equal to the sharded lane
+     0's within check_tree's tolerance, Dijkstra; latency p50 beside the
+     engine's; a query with randomized ties leaves dist unchanged) and the
+     static solver (convert and solve, Dijkstra); then at 2^16 against the
+     single-device lane engine on the card: the delta exchange
+     (overflowing lane-rounds counted), the sparse frontier (both
+     branches, per partition and lane), buckets, a checkpoint restored
+     into a fresh engine, observability, RMAT(16) sliced (K1's lane form
+     per width run and partition, both variants), and the batched BSP
+     baseline's final dist against the engine's;
   11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
      with a ``lanes`` record of their lane forms; K1-K3 with
      ``serving_launches``, their counts in phase 12's legs; K1 with
-     ``sharded_launches``, its count in phase 13's full-width leg, and a
-     ``sharded`` record), and as the last line ``{"ok": true, "device":
-     {...}}``.  Phases run in the order 1-6, 8-10, 12, 13, 7.
+     ``sharded_launches``, its count in phase 13's full-width leg, a
+     ``sharded`` record, and a ``sharded_lanes`` record of phase 14), and
+     as the last line ``{"ok": true, "device": {...}}``.  Phases run in
+     the order 1-6, 8-10, 12, 13, 14, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -1332,6 +1353,8 @@ def lanes_legs(torch, ctx) -> tuple[dict, dict]:
               f"{lane_launches}; lane 0 bit-identical to the single-source "
               f"run at all {len(res)} queries; every lane passes Dijkstra "
               f"(reached {reached})")
+        if key == "er":   # phase 14's sharded lanes are held against them
+            c["lanes"] = dict(results=res, wall=wall, n_topo=n_topo)
         del res, q
         dist = eng.state.sssp.dist
         if key == "er":
@@ -1791,6 +1814,7 @@ def sharded_full_width(torch, ctx) -> dict:
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms = {nbytes / 1e6:.1f} "
           f"MB at 3.35 TB/s); all {SHARDS} blocks: {times_text(every)}")
     waves = eng.n_rounds
+    c["sharded"] = res     # phase 14's lane 0 is held against it
     del eng, offers, st0, res
     single_s = control_plane_seconds(
         e, log, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
@@ -1939,6 +1963,358 @@ def sharded_cross_checks(torch) -> dict:
           f"partition at the end); phase 13's 2^16 checks in "
           f"{time.perf_counter() - t0:.1f} s")
     return {"sliced_launches": launches, "sliced_waves": eng.n_rounds}
+
+
+# ------------- phase 14: the sharded [S, N] lanes and the paper's baselines --
+BASELINE_QUERIES = (7, 14, 21)   # the ReMo baseline's query points on the cut
+
+
+def lane_results_equal(label, got, want) -> None:
+    """Lane stacks at every query: dist, parent and the per-lane rounds and
+    messages equal."""
+    assert len(got) == len(want) > 0, label
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert np.array_equal(a.dist, b.dist), f"{label}: dist at query {i}"
+        assert np.array_equal(a.parent, b.parent), \
+            f"{label}: parent at query {i}"
+        for k in ("rounds", "messages"):
+            assert np.array_equal(a.epoch_stats[k], b.epoch_stats[k]), \
+                f"{label}: {k} at query {i}"
+
+
+def count_waves(eng) -> list:
+    """Count a sharded engine's mesh waves (relaxation, pull and drain
+    waves, each for all lanes and partitions) by wrapping its
+    ``_apply_wave``; marking rounds run no wave."""
+    waves = []
+    real = eng.ds._apply_wave
+
+    def counted(*a, **k):
+        waves.append(1)
+        return real(*a, **k)
+
+    eng.ds._apply_wave = counted
+    return waves
+
+
+def sharded_lanes_full_width(torch, ctx) -> tuple[dict, list]:
+    """Phase 14's full-width leg: phase 8's cut of the ER stream through
+    ``make_engine(sources=`` the LANES top in-degree vertices,
+    ``relax_backend="ellpack", batch_deletions=True, mesh=`` SHARDS
+    partitions on cuda:0), K1's lane form once per partition and wave (its
+    counts set to 0 just before and read just after); every lane equal to
+    phase 9's run at every query (dist, parent, per-lane rounds and
+    messages), lane 0 to phase 13's; Dijkstra for every lane at the end;
+    K1's lane form on each partition's block against its plain version,
+    timed on one block and on all of them.  Returns K1's ``sharded_lanes``
+    record and lane 0's dist at the BASELINE_QUERIES."""
+    from repro_torch.kernels.relax import relax as k1
+    from repro_torch.kernels.relax.ref import ellpack_relax_ref
+    c = ctx["er"]
+    n, e, sources = c["n"], c["e"], tuple(c["sources"])
+    S = len(sources)
+    log, _, _ = leg_stream(c)
+    lanes = c["lanes"]
+    n_topo = lanes["n_topo"]
+    eng = engine(n, e, sources[0], sources=sources, relax_backend="ellpack",
+                 mesh=card_mesh(torch))
+    waves = count_waves(eng)
+    fn = k1.ellpack_relax
+    fn.launches = fn.lane_launches = 0
+    t0 = time.perf_counter()
+    res = eng.ingest_log(log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, lane_launches = fn.launches, fn.lane_launches
+    assert lane_launches > 0 and launches == lane_launches, \
+        f"[14] K1 launches {launches}, lane form {lane_launches}"
+    assert launches == SHARDS * len(waves), (launches, len(waves))
+    lane_results_equal("[14] sharded lanes vs phase 9", res, lanes["results"])
+    for i, (a, b) in enumerate(zip(res, c["sharded"])):
+        assert np.array_equal(a.dist[0], b.dist) and np.array_equal(
+            a.parent[0], b.parent), f"[14] lane 0 vs phase 13 at query {i}"
+    live = [np.concatenate(x)
+            for x in zip(*(a.active_coo() for a in eng.allocs))]
+    reached = [snapshot_check(n, s, *live, res[-1].dist[i],
+                              res[-1].parent[i])
+               for i, s in enumerate(sources)]
+    rate, rate9 = S * n_topo / wall, S * n_topo / lanes["wall"]
+    print(f"[14] ER sharded lanes, {SHARDS} partitions on cuda:0, {S} lanes "
+          f"(sources {sources}), its first {len(log)} events ({n_topo} "
+          f"topology, {len(res)} queries): {wall:.2f} s, {rate:.0f} "
+          f"source-events/s (phase 9's one-device lanes: {rate9:.0f} in "
+          f"{lanes['wall']:.2f} s; ratio {rate / rate9:.3f}), query p50 "
+          f"{p50_ms(res):.3f} ms, waves per lane {eng.n_rounds.tolist()}, "
+          f"mesh waves {len(waves)}, K1 lane-form launches {launches} "
+          f"({launches / len(waves):.2f} a mesh wave, none a marking "
+          f"round); every lane equal to phase 9 at all {len(res)} queries "
+          f"(dist, parent, rounds, messages), lane 0 to phase 13; every "
+          f"lane passes Dijkstra (reached {reached})")
+    lane0 = [res[q - 1].dist[0] for q in BASELINE_QUERIES]
+    p50 = p50_ms(res)
+    del res
+    offers = eng.ds.all_gather(eng.dist)[0]
+    states = eng.bk.states
+    variants = [k1.variant(st.nbr_idx, st.nbr_w) for st in states]
+    err = max(compare(torch, f"K1 lanes, partition {p}",
+                      k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w),
+                      ellpack_relax_ref(offers, st.nbr_idx, st.nbr_w))
+              for p, st in enumerate(states))
+    st0 = states[0]
+    times = kernel_times(
+        torch, lambda: k1.ellpack_relax(offers, st0.nbr_idx, st0.nbr_w), 50)
+    every = kernel_times(torch, lambda: [
+        k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w) for st in states], 20)
+    plain_ms = cuda_ms(torch, lambda: ellpack_relax_ref(
+        offers, st0.nbr_idx, st0.nbr_w), 10)
+    rows, k = st0.nbr_idx.shape
+    live_cells = int(torch.isfinite(st0.nbr_w).sum())
+    nbytes = k1.wave_bytes(offers.shape[-1], rows, k, live_cells, lanes=S)
+    bound_ms, bound_by = bound(nbytes, 2 * live_cells * S)
+    print(f"[14] K1's lane form on each partition's block ({rows} x {k}, "
+          f"offers {tuple(offers.shape)}) bit-identical to its plain "
+          f"version; variants {variants}; partition 0 ({live_cells} live "
+          f"cells): {times_text(times)} (plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at 3.35 TB/s); all "
+          f"{SHARDS} blocks: {times_text(every)}")
+    record = {"lanes": S, "launches": launches, "mesh_waves": len(waves),
+              "launches_per_wave": launches / len(waves),
+              "variants": variants, "max_abs_err": err, **times,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None,
+              "all_partitions": every, "source_events_per_s": rate,
+              "phase9_source_events_per_s": rate9, "query_p50_ms": p50}
+    del eng, offers, states, st0
+    return record, lane0
+
+
+def baselines_full_width(torch, c, lane0, engine_p50) -> dict:
+    """Phase 14's baselines at full width, on phase 8's cut of the ER
+    stream: ReMo-from-scratch queried at the BASELINE_QUERIES (dist equal
+    to the sharded lane 0's within check_tree's tolerance, Dijkstra at the
+    last; one more query with randomized ties leaves dist unchanged), its
+    latency p50 beside the engine's; the static solver's convert and solve
+    on the cut's log (Dijkstra)."""
+    from repro_torch.core.baseline import ReMoBaseline, StaticSolver
+    n, e, source = c["n"], c["e"], c["sources"][0]
+    log, _, _ = leg_stream(c)
+    kind = np.asarray(log.kind)
+    queries = np.nonzero(kind == 2)[0]
+    keep = kind != 2
+    keep[queries[[q - 1 for q in BASELINE_QUERIES]]] = True
+    base = ReMoBaseline(n, int(1.3 * e) + 64, source)
+    t0 = time.perf_counter()
+    got = base.ingest_log(log[keep])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    big = lambda x: np.where(np.isinf(x), 1e30, x)   # noqa: E731
+    assert len(got) == len(BASELINE_QUERIES)
+    for q, r, d in zip(BASELINE_QUERIES, got, lane0):
+        assert np.array_equal(np.isinf(r.dist), np.isinf(d)) and np.allclose(
+            big(r.dist), big(d), atol=1e-4, rtol=1e-5), \
+            f"[14] ReMo differs from the sharded lane 0 at query {q}"
+    coo = base.alloc.active_coo()
+    reached = snapshot_check(n, source, *coo, got[-1].dist, got[-1].parent)
+    remo_p50 = p50_ms(got)
+    base.randomize_ties = True
+    tied = base.query()
+    assert np.array_equal(tied.dist, got[-1].dist), "[14] ties moved dist"
+    moved = int((tied.parent != got[-1].parent).sum())
+    print(f"[14] ReMo-from-scratch over the cut ({len(log[keep])} events, "
+          f"queries {BASELINE_QUERIES}): {wall:.2f} s in all; latency p50: "
+          f"sharded lanes {engine_p50:.3f} ms | ReMo-from-scratch "
+          f"{remo_p50:.3f} ms | speedup {remo_p50 / engine_p50:.1f}x; rounds "
+          f"{[r.epoch_stats['rounds'] for r in got]}; dist equal to the "
+          f"sharded lane 0 (check_tree's tolerance) at each; Dijkstra "
+          f"({reached} reached); randomized ties: dist unchanged, "
+          f"{moved} parents moved, {tied.latency_s * 1e3:.3f} ms")
+    solver = StaticSolver(n)
+    convert_s = solver.convert(log)
+    rep = solver.solve(source)
+    ed = solver.edges
+    reached = snapshot_check(n, source, *(t.cpu().numpy() for t in (
+        ed.src, ed.dst, ed.w)), rep.dist, rep.parent)
+    print(f"[14] static solver on the cut's log: convert {convert_s:.2f} s "
+          f"({ed.src.numel()} live edges, CSR by dst), solve "
+          f"{rep.solve_s:.3f} s; Dijkstra ({reached} reached)")
+    return {"remo_p50_ms": remo_p50, "engine_query_p50_ms": engine_p50,
+            "remo_speedup": remo_p50 / engine_p50,
+            "static_convert_s": convert_s, "static_solve_s": rep.solve_s}
+
+
+def sharded_lanes_cross_checks(torch) -> dict:
+    """Phase 14 at 2^16 (the ER recipe's first quarter of events), SHARDS
+    partitions on cuda:0 with LANES lanes, each leg against the
+    single-device lane engine on the card: the delta exchange (overflowing
+    lane-rounds counted), the sparse frontier (both branches counted per
+    partition and lane), buckets, a checkpoint restored into a fresh
+    engine, observability (counters summed over partitions); RMAT(16) on
+    the sliced layout (K1's lane form once per width run and partition,
+    both variants); then the batched BSP baseline against the engine."""
+    from repro_torch.core import events as ev
+    from repro_torch.core import relax as relax_mod
+    from repro_torch.core.backends import sliced as sliced_mod
+    from repro_torch.core.baseline import BatchedBSPEngine
+    from repro_torch.kernels.relax import relax as k1
+    t0 = time.perf_counter()
+    n, e, sources, log = stream(16, "er")
+    log = log[:len(log) // SHARD_CHECK_FRACTION]
+    sources = tuple(sources)
+    ref = engine(n, e, sources[0], sources=sources, relax_backend="ellpack",
+                 observability=True)
+    want = ref.ingest_log(log)
+    ref_snap = ref.metrics_snapshot()
+    del ref
+
+    def sharded(**knobs):
+        return engine(n, e, sources[0], sources=sources,
+                      relax_backend="ellpack", mesh=card_mesh(torch), **knobs)
+
+    def check(label, got, *, stats=True):
+        assert len(got) == len(want) > 0, label
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert np.array_equal(a.dist, b.dist), f"[14] {label}: query {i}"
+            assert np.array_equal(a.parent, b.parent), \
+                f"[14] {label}: parent at query {i}"
+            assert not stats or all(
+                np.array_equal(a.epoch_stats[k], b.epoch_stats[k])
+                for k in ("rounds", "messages")), f"[14] {label}: stats {i}"
+
+    # delta exchange: per-lane overflow flags of every round
+    eng = sharded(exchange="delta", delta_cap=SHARD_DELTA_CAP)
+    flags = []
+    real = eng.ds._offers_delta
+
+    def offers_delta(dist, frontier, overflow):
+        flags.append(np.atleast_1d(overflow))
+        return real(dist, frontier, overflow)
+
+    eng.ds._offers_delta = offers_delta
+    check("delta", eng.ingest_log(log), stats=False)
+    over = sum(int(f.sum()) for f in flags)
+    total = sum(len(f) for f in flags)
+    mixed = sum(1 for f in flags if 0 < f.sum() < len(f))
+    assert 0 < over < total, f"[14] delta lane-rounds: {over}/{total}"
+    print(f"[14] 2^16 ER, {len(sources)} lanes, delta exchange (buffer "
+          f"{SHARD_DELTA_CAP}): dist and parent equal to the single lane "
+          f"engine at all {len(want)} queries; {over} of {total} "
+          f"lane-rounds overflowed to dense offers ({mixed} of {len(flags)} "
+          f"rounds picked per lane by a device select)")
+
+    # sparse frontier: the [P, S] live-offer counts read per wave
+    counts = []
+    real_host = relax_mod.host
+
+    def spy(t):
+        got = real_host(t)
+        if t.dim() == 2 and t.dtype != torch.bool:
+            counts.append(np.asarray(got))
+        return got
+
+    relax_mod.host = spy
+    try:
+        got = sharded(frontier_mode="sparse",
+                      frontier_cap=SHARD_FRONTIER_CAP).ingest_log(log)
+    finally:
+        relax_mod.host = real_host
+    check("sparse", got)
+    counts = np.concatenate(counts)
+    compact = int((counts <= SHARD_FRONTIER_CAP).sum())
+    assert 0 < compact < counts.size, f"[14] sparse branches: {compact}"
+    print(f"[14] sparse frontier (cap {SHARD_FRONTIER_CAP}): equal to the "
+          f"single lane engine (dist, parent, rounds, messages); {compact} "
+          f"of {counts.size} (partition, lane) waves compacted, the rest "
+          f"took K1's lane form")
+
+    check("buckets", sharded(wave_schedule="buckets",
+                             bucket_width=1.0).ingest_log(log), stats=False)
+    half = len(log) // 2
+    eng = sharded()
+    first = eng.ingest_log(log[:half])
+    ckpt = eng.checkpoint()
+    eng = sharded()
+    eng.restore(ckpt)
+    check("checkpoint", first + eng.ingest_log(log[half:]), stats=False)
+    eng = sharded(observability=True)
+    check("observability", eng.ingest_log(log))
+    snap = eng.metrics_snapshot()
+    ct, rct = snap["counters"], ref_snap["counters"]
+    for k in ("rounds", "messages"):
+        assert np.array_equal(snap[k], ref_snap[k]), k
+    assert int(np.sum(ct["frontier_per_part"])) == rct["frontier"]
+    for kind in ("adds", "dels"):   # a counter is absent until it counts
+        assert int(np.sum(ct.get(f"{kind}_per_part", 0))) == snap[kind] \
+            == ref_snap[kind], kind
+    assert np.array_equal(ct["hist_waves_per_epoch"],
+                          rct["hist_waves_per_epoch"])
+    print(f"[14] buckets, a checkpoint restored into a fresh engine, "
+          f"observability: equal to the single lane engine; obs rounds "
+          f"{np.asarray(snap['rounds']).tolist()}, adds per partition "
+          f"{np.asarray(ct['adds_per_part']).tolist()}, updates per lane "
+          f"{np.asarray(ct['updates_per_lane']).tolist()}")
+
+    # RMAT(16) on the sliced layout: K1's lane form per width run and
+    # partition; the variant of every launch recorded on the way
+    seen = set()
+    real_k1 = sliced_mod.ellpack_relax
+
+    def k1_seen(offers, idx, w):
+        seen.add(k1.variant(idx, w))
+        return real_k1(offers, idx, w)
+
+    rn, re_, rsources, rlog = stream(16, "rmat")
+    rlog = rlog[:len(rlog) // SHARD_CHECK_FRACTION]
+    rsources = tuple(rsources)
+    knobs = dict(relax_backend="sliced", ell_use_kernel=True,
+                 sources=rsources)
+    single = engine(rn, re_, rsources[0], sliced_fused=False, **knobs)
+    rwant = single.ingest_log(rlog)
+    eng = engine(rn, re_, rsources[0], mesh=card_mesh(torch), **knobs)
+    sliced_mod.ellpack_relax = k1_seen
+    try:
+        k1.ellpack_relax.lane_launches = 0
+        wall, got, (launches,) = run_path(torch, eng, rlog,
+                                          [k1.ellpack_relax])
+    finally:
+        sliced_mod.ellpack_relax = real_k1
+    lane_l = k1.ellpack_relax.lane_launches
+    assert launches > 0 and lane_l == launches, (launches, lane_l)
+    assert seen == {"vector", "scalar"}, f"[14] sliced variants {seen}"
+    lane_results_equal("[14] sharded sliced lanes", got, rwant)
+    print(f"[14] 2^16 RMAT sliced, {len(rsources)} lanes: equal to the "
+          f"single unfused sliced lane engine at all {len(got)} queries "
+          f"(counters too); {wall:.2f} s, K1 lane-form launches {launches} "
+          f"(waves per lane {eng.n_rounds.tolist()}), variants "
+          f"{sorted(seen)}")
+    sliced_launches = launches
+
+    # the batched BSP baseline, flushes of an eighth of the events each, up
+    # to the last query
+    kind = np.asarray(log.kind)
+    end = int(np.nonzero(kind == ev.QUERY)[0][-1])
+    topo = log[:end][kind[:end] != ev.QUERY]
+    bsp = BatchedBSPEngine(n, int(1.3 * e) + 64, sources[0],
+                           batch_size=len(topo) // 8)
+    lat = []
+    for a in range(0, len(topo), 4096):
+        bsp.push(topo[a:a + 4096])
+        got = bsp.maybe_flush()
+        if got is not None:
+            lat.append(got)
+    lat.append(bsp.force_flush())
+    final = bsp.inner.query()
+    assert np.array_equal(final.dist, want[-1].dist[0]), "[14] BSP dist"
+    print(f"[14] batched BSP (batches of {len(topo) // 8} events): "
+          f"{len(lat)} flushes, p50 {np.median(lat) * 1e3:.1f} ms; final "
+          f"dist equal to the engine's lane 0 at the last query; phase 14's "
+          f"2^16 checks in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"delta_lane_rounds_overflowed": over,
+            "delta_lane_rounds": total, "sparse_compacted": compact,
+            "sparse_partition_lane_waves": int(counts.size),
+            "sliced_launches": sliced_launches,
+            "sliced_variants": sorted(seen),
+            "bsp_flush_p50_ms": float(np.median(lat)) * 1e3}
 
 
 # ------------------------------------------ phase 7: the K4 and K5 paths --
@@ -2160,11 +2536,20 @@ def main() -> int:
     # ---- 13. the sharded engine, SHARDS partitions on the card
     t13 = time.perf_counter()
     sharded = sharded_full_width(torch, ctx)
-    del ctx
     sharded.update(sharded_cross_checks(torch))
     kernels[0]["sharded_launches"] = sharded["launches"]
     kernels[0]["sharded"] = sharded
     print(f"[13] phase 13 in {time.perf_counter() - t13:.1f} s")
+
+    # ---- 14. the sharded lanes and the paper's baselines
+    t14 = time.perf_counter()
+    lanes, lane0 = sharded_lanes_full_width(torch, ctx)
+    lanes.update(baselines_full_width(torch, ctx["er"], lane0,
+                                      lanes["query_p50_ms"]))
+    del ctx, lane0
+    lanes.update(sharded_lanes_cross_checks(torch))
+    kernels[0]["sharded_lanes"] = lanes
+    print(f"[14] phase 14 in {time.perf_counter() - t14:.1f} s")
 
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))

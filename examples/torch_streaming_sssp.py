@@ -6,9 +6,9 @@ Run: PYTHONPATH=src python examples/torch_streaming_sssp.py [--delta 0.3]
 
 Generates an RMAT graph, replays it as a timestamped stream with windowed
 deletions (probability --delta), queries every W/10 events, and reports the
-paper's three metrics: query latency, tree stability, ingestion rate.  The
-twin of examples/streaming_sssp.py, without its from-scratch ReMo baseline
-(the port has no baselines yet).
+paper's three metrics: query latency (beside the ReMo-from-scratch
+baseline's, ``repro_torch.core.baseline``, and the speedup), tree
+stability, ingestion rate.  The twin of examples/streaming_sssp.py.
 
 Engines are built through ``repro_torch.make_engine``.  Real datasets
 (SNAP/Konect edge lists on local disk, .gz ok) stream through the same
@@ -45,6 +45,7 @@ import numpy as np
 
 import repro_torch
 from repro_torch.core import events as ev
+from repro_torch.core.baseline import ReMoBaseline
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs import window as win
 from repro_torch.obs import out_path_or_exit, write_log_jsonl
@@ -182,9 +183,15 @@ def main():
 
     eng.ingest_log(log, on_query=on_query)
     wall = time.perf_counter() - t0
+
+    base = ReMoBaseline(n, cap, source, device=args.device)
+    base_lat = [r.latency_s for r in base.ingest_log(log)]
+
     print(f"device: {eng.device}")
     print(f"queries: {len(lat)}")
-    print(f"latency p50: {np.median(lat) * 1e3:.3f} ms")
+    print(f"latency p50: ours {np.median(lat) * 1e3:.3f}ms | "
+          f"ReMo-from-scratch {np.median(base_lat) * 1e3:.3f}ms | "
+          f"speedup {np.median(base_lat) / max(np.median(lat), 1e-9):.1f}x")
     print(f"stability (predecessor overlap): p50 {np.median(stab):.4f}")
     print(f"ingestion: {len(log) / wall:.0f} events/s "
           f"({eng.n_epochs} epochs, {eng.n_rounds} message waves, "

@@ -472,13 +472,14 @@ class ShardedEllpack(ShardedBackend):
 
     def shard_wave(self, p, pool):
         """K1 (or its plain version) on partition ``p``'s block: one launch
-        per partition and wave."""
+        per partition and wave, for every lane of ``[S, N]`` offers (K1's
+        lane form)."""
         st, npp = self.states[p], self.npp
         fn = ellpack_relax if self.use_kernel else ellpack_relax_ref
 
         def wave(offers):
             best, arg = fn(offers, st.nbr_idx, st.nbr_w)
-            return best[:npp], arg[:npp]
+            return best[..., :npp], arg[..., :npp]
 
         return wave
 

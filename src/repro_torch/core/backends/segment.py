@@ -33,7 +33,8 @@ def shard_segment_wave(esrc: torch.Tensor, edst: torch.Tensor,
 
     ``wave(offers) -> (best, arg)``: per owned row, the min of
     ``offers[src] + w`` over live in-edges and the smallest minimizing
-    global src id (``2**31-1`` when no live candidate).  Frontier masking is
+    global src id (``2**31-1`` when no live candidate); ``[S, N]`` offers
+    (a lane stack) give ``[S, npp]``.  Frontier masking is
     carried by ``offers`` (+inf for non-offering sources), which makes the
     same wave serve relaxation rounds, delta rounds and the deletion pull.
     Inactive slots keep ``dst`` inside the window (the padding-row
@@ -41,9 +42,9 @@ def shard_segment_wave(esrc: torch.Tensor, edst: torch.Tensor,
     dl = (edst - row0).long()
 
     def wave(offers):
-        cand = torch.where(eact, offers[esrc] + ew, INF)
+        cand = torch.where(eact, offers[..., esrc] + ew, INF)
         best = segment_min(cand, dl, npp, INF)
-        hit = (cand == best[dl]) & (cand < INF)
+        hit = (cand == best[..., dl]) & (cand < INF)
         arg = segment_min(torch.where(hit, esrc, BIG), dl, npp, BIG)
         return best, arg
 

@@ -629,7 +629,8 @@ class ShardedSliced(ShardedBackend):
 
     def shard_wave(self, p, pool):
         """Partition ``p``'s unfused hybrid wave: K1 (or its plain version)
-        once per width run of its slices, the overflow lane, the combine."""
+        once per width run of its slices, the overflow lane, the combine;
+        ``[S, N]`` offers take K1's lane form once per width run."""
         st, npp = self.states[p], self.npp
         orow = st.odst.clamp(0, npp - 1)
         fn = ellpack_relax if self.use_kernel else ellpack_relax_ref
@@ -639,7 +640,8 @@ class ShardedSliced(ShardedBackend):
                 offers, st.flat_idx, st.flat_w, widths=st.widths,
                 slice_rows=st.slice_rows, relax=fn)
             obest, oarg = overflow_min(offers, st.osrc, orow, st.ow, npp)
-            return combine_lanes(best[:npp], arg[:npp], obest, oarg)
+            return combine_lanes(best[..., :npp], arg[..., :npp], obest,
+                                 oarg)
 
         return wave
 

@@ -1,5 +1,5 @@
 """ShardedSSSPDelEngine — the fully dynamic engine over a vertex-partitioned
-mesh (torch rendering of ``repro.core.dist_engine``, single-source half).
+mesh (torch rendering of ``repro.core.dist_engine``).
 
 The same ``EventLog`` stream that drives ``SSSPDelEngine`` drives P
 partitions here, each with its own vertex window, edge pool and layout:
@@ -20,6 +20,17 @@ partitions here, each with its own vertex window, edge pool and layout:
   * **Host reads**: every wave reads ONE small tensor for all P partitions
     (``DistributedSSSP._go``); rounds are host integers and messages a
     device scalar, as in the port's single-device engine.
+  * **Lanes** (``sources=(s0, ...)``, the reference's ``_build_epochs_ms``):
+    S trees as ``[S, npp]`` state per partition over the one shared pool
+    and layout.  Each batch patches the pools and layouts ONCE; an ADD's
+    tails are every lane's frontier; a deletion seeds each lane from its
+    own tree, and a lane without a seed is left out of the marking;
+    "never invalidate the source" holds per lane.  The bodies are
+    ``DistributedSSSP``'s own, lane-generic: each round still reads one
+    small tensor for all lanes and partitions (the ``[S]`` flags), so
+    P = 8 reads what P = 1 reads, and rounds and messages are ``[S]``
+    counters that freeze per lane as the reference's vmapped loops do.
+    K1 runs its lane form once per partition and wave.
 
 Equivalence contract (as the reference's): with ``exchange="allgather"``
 the engine is bit-identical in ``(dist, parent)``, rounds and messages to
@@ -43,10 +54,10 @@ Departures from the reference's rendering, with the same results:
     controller drives every partition — no ``torch.distributed``.
 
 Checkpoint/restore uses the reference's schema (pool arrays in
-partition-major slot order from the host mirrors, padded dist / parent),
-so either package restores the other's; layouts are rebuilt from the
-mirrors on restore, never serialized.  ``sources=`` (the reference's
-batched ``[S, N]`` lanes) is not ported yet.
+partition-major slot order from the host mirrors, padded dist / parent,
+``[S, N]`` and an ``[S]`` source for lanes), so either package restores
+the other's; layouts are rebuilt from the mirrors on restore, never
+serialized.
 """
 from __future__ import annotations
 
@@ -98,7 +109,7 @@ class ShardedEngineConfig:
     # as in the reference
     frontier_mode: str = "dense"
     frontier_cap: int = 0    # per-partition edge-worklist cap; 0 = Epp/64
-    sources: tuple[int, ...] | None = None   # not ported: raises
+    sources: tuple[int, ...] | None = None   # None = single-source
     observability: bool = False
     obs_flight_capacity: int = 128
     obs_watchdog: WatchdogConfig | None = None
@@ -115,10 +126,13 @@ class ShardedEngineConfig:
             raise ValueError(f"obs_flight_capacity must be >= 1; got "
                              f"{self.obs_flight_capacity}")
         if self.sources is not None:
-            raise ValueError(
-                "sources= on the sharded engine is not yet ported to "
-                "repro_torch: the sharded [S, N] lanes are the next slice; "
-                "use SSSPDelEngine for batched sources")
+            self.sources = tuple(int(s) for s in self.sources)
+            bad = [s for s in self.sources
+                   if not 0 <= s < self.num_vertices]
+            if not self.sources or bad:
+                raise ValueError(
+                    f"sources must be non-empty vertex ids in "
+                    f"[0, {self.num_vertices}); got {self.sources}")
         dev = torch.device(self.device)
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(
@@ -148,7 +162,7 @@ class ShardedSSSPDelEngine(StreamEngineBase):
         if bad:
             raise ValueError(f"mesh devices {bad} are not of the config's "
                              f"device type {kind!r}")
-        super().__init__(mesh.devices[0], None,
+        super().__init__(mesh.devices[0], cfg.sources,
                          observability=cfg.observability,
                          flight_capacity=cfg.obs_flight_capacity,
                          watchdog=cfg.obs_watchdog)
@@ -176,8 +190,10 @@ class ShardedSSSPDelEngine(StreamEngineBase):
             mesh_axes=tuple(mesh.axis_names), exchange=cfg.exchange,
             delta_cap=cfg.delta_cap))
         self.P, self.npp, self.epp = self.ds.P, self.ds.npp, cfg.edges_per_part
-        self._source_pad = int(cfg.source if self.perm is None
-                               else self.perm[cfg.source])
+        # the padded / relabeled source id, or a tuple of them for lanes
+        pad = (lambda s: int(s if self.perm is None else self.perm[s]))
+        self._source_pad = (pad(cfg.source) if self.sources is None
+                            else tuple(pad(s) for s in self.sources))
         # control plane: one planner per partition, local Epp-slot pools
         self.allocs = [ingest.make_allocator(cfg.edges_per_part,
                                              cfg.on_duplicate,
@@ -186,7 +202,16 @@ class ShardedSSSPDelEngine(StreamEngineBase):
         self.bk = bk_mod.make_sharded_backend(
             cfg.relax_backend, cfg, self.ds, self.allocs,
             use_kernel=resolve_kernel(cfg.ell_use_kernel, mesh.devices[0]))
-        self.dist, self.parent = self.ds.init_vertex_arrays(self._source_pad)
+        if self.sources is None:
+            self.dist, self.parent = self.ds.init_vertex_arrays(
+                self._source_pad)
+        else:
+            self.dist, self.parent = self.ds.init_vertex_arrays_ms(
+                self._source_pad)
+        # each partition's "never invalidate the source" mask (per lane)
+        src = torch.tensor(self._source_pad, dtype=torch.int32)
+        self._not_src = [ids != src.to(ids.device)[..., None]
+                         for ids in self.ds.local_ids]
         self.pools = self.ds.put_edges(
             np.zeros(self.P * self.epp, np.int32),
             inactive_dst_layout(self.P, self.npp, self.epp),
@@ -200,8 +225,8 @@ class ShardedSSSPDelEngine(StreamEngineBase):
         # bucket_width="auto" cache: (width, live-edge estimate at it)
         self._bw_cache: tuple[float, int] | None = None
         self.bucketed = cfg.wave_schedule == "buckets"
-        self._zero_pend = [torch.zeros(self.npp, dtype=torch.bool, device=d)
-                           for d in self.ds.devices]
+        self._zero_pend = [torch.zeros(d.shape, dtype=torch.bool,
+                                       device=d.device) for d in self.dist]
         self._push = self._pull = self._zero_pend
         # touched-vertex attribution baseline: dist at the last metrics
         # readout (the tensors are replaced, never written in place)
@@ -220,12 +245,13 @@ class ShardedSSSPDelEngine(StreamEngineBase):
     def _dev(self, p: int, *arrays: np.ndarray) -> list[torch.Tensor]:
         return [torch.as_tensor(a).to(self.ds.devices[p]) for a in arrays]
 
-    def _fold(self, rounds: int, messages: torch.Tensor) -> None:
-        """Fold one epoch's rounds (host) and messages (device); with obs
-        on, the cumulative counters are recorded and their consecutive
-        differences become the waves- and messages-per-epoch histogram
-        samples at flush (the reference's ``_fold_epoch_obs``)."""
-        self._rounds += rounds
+    def _fold(self, rounds, messages: torch.Tensor) -> None:
+        """Fold one epoch's rounds (host; per lane for lanes) and messages
+        (device); with obs on, the cumulative counters are recorded and
+        their consecutive differences become the waves- and
+        messages-per-epoch histogram samples at flush (the reference's
+        ``_fold_epoch_obs``)."""
+        self._rounds = self._rounds + rounds
         self._dev_messages = self._dev_messages + messages
         if self.obs.enabled:
             self.obs.hist_cumulative("hist_waves_per_epoch", self._rounds)
@@ -256,14 +282,18 @@ class ShardedSSSPDelEngine(StreamEngineBase):
         return width
 
     def _obs_pre_snapshot(self) -> None:
-        """Per-partition touched-vertex attribution: vertices whose dist
-        changed since the last metrics readout, a [P] vector (one compare
-        per readout, never per epoch)."""
+        """Touched-vertex attribution: vertices whose dist changed since
+        the last metrics readout, a [P] per-partition vector ([S] per lane
+        for lanes; one compare per readout, never per epoch)."""
         mark = self._obs_dist_mark
         if mark is not None:
             upd = per_partition_occupancy(
                 [d != m for d, m in zip(self.dist, mark)], self.ds.dev0)
-            self.obs.counters.add("updates_per_part", upd, dim="partition")
+            if self.sources is None:
+                self.obs.counters.add("updates_per_part", upd,
+                                      dim="partition")
+            else:
+                self.obs.counters.add("updates_per_lane", upd, dim="lane")
         self._obs_dist_mark = list(self.dist)
 
     # ------------------------------------------------------------------ adds
@@ -292,10 +322,11 @@ class ShardedSSSPDelEngine(StreamEngineBase):
                     p, *ingest.pad_pow2(plan.slots, plan.src, plan.dst,
                                         plan.w)))
             # frontier = tails of the inserted edges (paper Listing 3), each
-            # partition its own window
+            # partition its own window, the same for every lane
             mask = np.zeros(self.P * self.npp, np.bool_)
             mask[tails] = True
-            frontier = self.ds.shard(mask)
+            frontier = [f.expand(d.shape) for f, d in
+                        zip(self.ds.shard(mask), self.dist)]
             if self.bucketed:
                 # deferred settle: enqueue the reachable tails, no waves
                 self._push = [q | (f & torch.isfinite(d)) for q, f, d in
@@ -353,38 +384,39 @@ class ShardedSSSPDelEngine(StreamEngineBase):
 
     def _del_epoch(self, parts) -> None:
         """One deletion epoch: seed from the PRE-deletion tree (Listing 4:
-        only tree edges seed), deactivate the slots and tombstone the
-        layouts, then — when any partition has a seed — invalidate the
-        subtrees and recompute (rounds schedule) or defer the recompute
-        into the pending masks (buckets).  Stats as the reference's."""
+        only tree edges seed; each lane its own tree), deactivate the slots
+        and tombstone the layouts once, then — in the lanes where any
+        partition has a seed — invalidate the subtrees and recompute
+        (rounds schedule) or defer the recompute into the pending masks
+        (buckets).  Stats as the reference's, gated per lane."""
         seed = list(self._zero_pend)
         for p, *batch in parts:
             slots, psrc, pdst = ingest.pad_pow2(*batch)
             s, d = self._dev(p, psrc, (pdst - p * self.npp).astype(np.int32))
-            seed[p] = relax.mark_vertices(d, self.parent[p][d.long()] == s,
-                                          self.npp)
+            seed[p] = relax.mark_vertices(
+                d, self.parent[p][..., d.long()] == s, self.npp)
             ingest.apply_dels(self.pools[p], *self._dev(p, slots))
             self.bk.shard_del_patch(p, pdst, psrc)
         flood_delta = (not self.cfg.use_doubling
                        and self.cfg.exchange == "delta")
         any_seed, overflow = self.ds._go(seed, flood_delta)
-        zero = torch.zeros((), dtype=torch.int64, device=self.ds.dev0)
-        if not any_seed:
-            self._fold(0, zero)
+        zero = torch.zeros(self.dist[0].shape[:-1], dtype=torch.int64,
+                           device=self.ds.dev0)
+        if not np.any(any_seed):
+            self._fold(relax.no_rounds(self.dist[0]), zero)
             return
         if self.cfg.use_doubling:
-            aff, inv_rounds = self.ds._invalidate_doubling(self.parent, seed)
+            aff, inv_rounds = self.ds._invalidate_doubling(self.parent, seed,
+                                                           any_seed)
         elif flood_delta:
             aff, inv_rounds = self.ds._invalidate_delta(self.parent, seed,
-                                                        overflow)
+                                                        overflow, any_seed)
         else:
-            aff, inv_rounds = self.ds._invalidate_flood_dense(self.parent,
-                                                              seed)
+            aff, inv_rounds = self.ds._invalidate_flood_dense(
+                self.parent, seed, any_seed)
         # never invalidate the source (parity with the single-device engine)
-        src_p = self._source_pad // self.npp
-        aff[src_p] = aff[src_p] & (self.ds.local_ids[src_p]
-                                   != self._source_pad)
-        affected = self.ds.psum([a.sum() for a in aff])
+        aff = [a & m for a, m in zip(aff, self._not_src)]
+        affected = self.ds.psum([a.sum(-1) for a in aff])
         dist = [torch.where(a, INF, d) for a, d in zip(aff, self.dist)]
         parent = [torch.where(a, NO_PARENT, q)
                   for a, q in zip(aff, self.parent)]
@@ -404,7 +436,8 @@ class ShardedSSSPDelEngine(StreamEngineBase):
             dist, parent, rec_rounds, rec_msgs = \
                 self.ds._recompute_pull_push(dist, parent, aff, self._wave())
         self.dist, self.parent = dist, parent
-        self._fold(inv_rounds + rec_rounds, rec_msgs + affected)
+        # a lane without a seed counts no round (its pull is not a round)
+        self._fold((inv_rounds + rec_rounds) * any_seed, rec_msgs + affected)
 
     # ----------------------------------------------------------------- query
     def drain(self) -> None:
@@ -414,13 +447,14 @@ class ShardedSSSPDelEngine(StreamEngineBase):
         if not self.bucketed:
             return
         if self.obs.enabled:
-            # bucket occupancy at drain entry: [P] per-partition counts,
-            # accumulated on the device
+            # bucket occupancy at drain entry: [P] per-partition counts ([S]
+            # per-lane totals for lanes), accumulated on the device
             dev0 = self.ds.dev0
+            occ_dim = "partition" if self.sources is None else "lane"
             self.obs.counters.add("pending_push", per_partition_occupancy(
-                self._push, dev0), dim="partition")
+                self._push, dev0), dim=occ_dim)
             self.obs.counters.add("pending_pull", per_partition_occupancy(
-                self._pull, dev0), dim="partition")
+                self._pull, dev0), dim=occ_dim)
         with self.obs.epoch("drain"):
             self.dist, self.parent, rounds, msgs = self.ds._drain_body(
                 self.dist, self.parent, self._push, self._pull, self._wave(),
@@ -431,18 +465,20 @@ class ShardedSSSPDelEngine(StreamEngineBase):
                 self.obs.counters.inc("drain_waves", rounds)
 
     def _snapshot(self, lane: int | None) -> tuple[np.ndarray, np.ndarray]:
-        """Drain, read back (one copy each), un-permute and drop padding."""
+        """Drain, read back (one copy each; a routed lane query copies
+        only that lane), un-permute and drop padding."""
         self.drain()
-        dist = self.ds.to_host(self.dist)
-        parent = self.ds.to_host(self.parent)
+        d, p = ((self.dist, self.parent) if lane is None else
+                ([t[lane] for t in self.dist], [t[lane] for t in self.parent]))
+        dist, parent = self.ds.to_host(d), self.ds.to_host(p)
         if self.perm is not None:
-            dist = dist[self.perm]
-            pp = parent[self.perm]
+            dist = dist[..., self.perm]
+            pp = parent[..., self.perm]
             parent = np.where(pp >= 0, self.inv[np.clip(pp, 0, None)],
                               NO_PARENT).astype(np.int32)
         else:
             n = self.cfg.num_vertices
-            dist, parent = dist[:n], parent[:n]
+            dist, parent = dist[..., :n], parent[..., :n]
         return dist, parent
 
     # ------------------------------------------------------------ checkpoint
@@ -469,9 +505,9 @@ class ShardedSSSPDelEngine(StreamEngineBase):
         rebuilds the per-partition planners from the pool slices, copies
         the arrays to the partitions' devices and rebuilds the layouts."""
         src_ck = np.atleast_1d(np.asarray(ckpt["source"])).tolist()
-        if src_ck != [self._source_pad]:
-            raise ValueError(f"checkpoint source {src_ck} != "
-                             f"{[self._source_pad]}")
+        src_now = np.atleast_1d(np.asarray(self._source_pad)).tolist()
+        if src_ck != src_now:
+            raise ValueError(f"checkpoint source {src_ck} != {src_now}")
         if np.asarray(ckpt["dist"]).shape[-1] != self.P * self.npp:
             raise ValueError(
                 f"checkpoint has {np.asarray(ckpt['dist']).shape[-1]} vertex "

@@ -1,6 +1,5 @@
 """Distributed SSSP-Del over a vertex-partitioned mesh, driven by one
-controller (torch rendering of ``repro.core.distributed``, single-source
-half).
+controller (torch rendering of ``repro.core.distributed``).
 
 Shared-nothing mapping (paper §3):
 
@@ -35,6 +34,17 @@ values on the controller's device (``devices[0]``) and sums them.
 
 Counters follow the port's single-device engine: rounds are host integers,
 messages (improvements summed over partitions) a device scalar.
+
+Lanes: every round, marking and drain body also takes a stack of S trees
+— each partition holds ``[S, npp]`` dist, parent and masks over its one
+pool slice (the reference's ``*_ms`` bodies, written with a leading source
+axis).  The collectives gather and sum along the vertex axis, the read of
+each round is then one ``[S]`` flag vector (``[2, S]`` with the delta
+overflow flags), and a lane counts a round only while its own condition
+held, as the reference's per-lane ``go`` gates freeze a finished lane.
+Under ``"delta"`` each lane packs its own buffer; a round where some lanes
+overflow computes both offers and picks per lane with a device select,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -71,8 +81,11 @@ def per_partition_occupancy(mask: Parts, device: torch.device
                             ) -> torch.Tensor:
     """Live counts of a partitioned bool vertex mask for the obs counter
     registry: each partition sums the window it owns, no collective and no
-    host read, giving an i32[P] vector on ``device``."""
-    return torch.stack([m.sum(dtype=torch.int32).to(device) for m in mask])
+    host read, giving an i32[P] vector on ``device``; a lane stack
+    (``[S, npp]`` parts) gives the per-lane totals, i32[S]."""
+    sums = torch.stack([m.sum(-1, dtype=torch.int32).to(device)
+                        for m in mask])
+    return sums.sum(0, dtype=torch.int32) if mask[0].dim() == 2 else sums
 
 
 def mesh_wave(waves: Sequence[ShardWave]) -> MeshWave:
@@ -126,32 +139,37 @@ class DistributedSSSP:
         return out
 
     def all_gather(self, parts: Parts) -> Parts:
-        """The partitions' tensors concatenated in partition order (the
-        reference's tiled ``all_gather``), one copy per distinct device."""
+        """The partitions' tensors concatenated in partition order along
+        their last axis (the reference's tiled ``all_gather``; a lane stack
+        gathers each lane), one copy per distinct device."""
         cache: dict[torch.device, torch.Tensor] = {}
         out = []
         for dev in self.devices:
             if dev not in cache:
-                cache[dev] = torch.cat([t.to(dev) for t in parts])
+                cache[dev] = torch.cat([t.to(dev) for t in parts], dim=-1)
             out.append(cache[dev])
         return out
 
     def psum(self, parts: Parts) -> torch.Tensor:
-        """The sum over partitions, on the controller's device."""
+        """The sum over partitions (per lane for ``[S]`` parts), on the
+        controller's device."""
         return torch.stack([t.to(self.dev0) for t in parts]).sum(0)
 
     def _counts(self, mask: Parts) -> Parts:
-        return [m.sum() for m in mask]
+        return [m.sum(-1) for m in mask]
 
-    def _read(self, *flags: torch.Tensor) -> tuple[bool, ...]:
-        """Replicated 0-d flags read back in ONE host sync."""
+    def _read(self, *flags: torch.Tensor) -> tuple:
+        """Replicated flags (0-d, or ``[S]`` for lanes) read back in ONE
+        host sync: a bool each, or a bool[S] array each."""
         got = relax.host(torch.stack(flags) if len(flags) > 1 else flags[0])
-        return tuple(bool(x) for x in np.atleast_1d(got))
+        if len(flags) == 1:
+            got = [got]
+        return tuple(g if np.ndim(g) else bool(g) for g in got)
 
-    def _go(self, mask: Parts, check_overflow: bool
-            ) -> tuple[bool, bool]:
+    def _go(self, mask: Parts, check_overflow: bool) -> tuple:
         """(any partition's mask set, any partition's mask over the delta
-        buffer) — one read; the second is False unless asked for."""
+        buffer), per lane for a lane stack — one read; the second is False
+        unless asked for."""
         counts = self._counts(mask)
         total = self.psum(counts) > 0
         if not check_overflow:
@@ -162,23 +180,26 @@ class DistributedSSSP:
 
     # ---------------------------------------------------------- host helpers
     def shard(self, a: np.ndarray) -> Parts:
-        """A global partition-major host array as P per-partition tensors
-        (copies: the partitions never alias the caller's array)."""
+        """A global partition-major host array (``[..., N]``: a lane stack
+        splits its last axis) as P per-partition tensors (copies: the
+        partitions never alias the caller's array)."""
         a = np.asarray(a)
-        k = len(a) // self.P
-        return [torch.tensor(a[p * k:(p + 1) * k], device=dev)
+        k = a.shape[-1] // self.P
+        return [torch.tensor(a[..., p * k:(p + 1) * k], device=dev)
                 for p, dev in enumerate(self.devices)]
 
     def to_host(self, parts: Parts) -> np.ndarray:
-        """The partitions' tensors concatenated on the host, each copied
-        straight into its slice, with no gathered copy on the device (on
-        the card, right after an epoch, gathering first made the query's
-        readback several times slower)."""
-        out = torch.empty(sum(t.numel() for t in parts), dtype=parts[0].dtype)
+        """The partitions' tensors concatenated on the host along their
+        last axis, each copied straight into its slice, with no gathered
+        copy on the device (on the card, right after an epoch, gathering
+        first made the query's readback several times slower)."""
+        lead = parts[0].shape[:-1]
+        out = torch.empty((*lead, sum(t.shape[-1] for t in parts)),
+                          dtype=parts[0].dtype)
         at = 0
         for t in parts:
-            out[at:at + t.numel()].copy_(t)
-            at += t.numel()
+            out[..., at:at + t.shape[-1]].copy_(t)
+            at += t.shape[-1]
         return out.numpy()
 
     def place_edges(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray
@@ -215,6 +236,15 @@ class DistributedSSSP:
         dist = np.full(n, np.inf, np.float32)
         dist[source] = 0.0
         return self.shard(dist), self.shard(np.full(n, -1, np.int32))
+
+    def init_vertex_arrays_ms(self, sources: Sequence[int]
+                              ) -> tuple[Parts, Parts]:
+        """Stacked ``[S, N]`` state, partitioned along the vertex axis (lane
+        ``i`` is ``init_vertex_arrays(sources[i])``)."""
+        n, s = self.cfg.num_vertices, len(sources)
+        dist = np.full((s, n), np.inf, np.float32)
+        dist[np.arange(s), np.asarray(sources)] = 0.0
+        return self.shard(dist), self.shard(np.full((s, n), -1, np.int32))
 
     def put_edges(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                   active: np.ndarray) -> list[EdgePool]:
@@ -260,141 +290,184 @@ class DistributedSSSP:
 
     def _pack(self, p: int, mask: torch.Tensor, vals: torch.Tensor | None
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """Partition p's delta buffer: the (global id, value) of its set
-        vertices, set ones first (a stable sort), ``delta_cap`` slots, empty
-        slots -1 / +inf."""
-        order = torch.argsort((~mask).to(torch.uint8), stable=True)
-        take = order[:self.cfg.delta_cap]
-        sel = mask[take]
+        """Partition p's delta buffer (one per lane): the (global id, value)
+        of its set vertices, set ones first (a stable sort), ``delta_cap``
+        slots, empty slots -1 / +inf."""
+        order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+        take = order[..., :self.cfg.delta_cap]
+        sel = mask.gather(-1, take)
         idx = torch.where(sel, self.local_ids[p][take], -1)
         if vals is None:
             return idx, None
-        return idx, torch.where(sel, vals[take], INF)
+        return idx, torch.where(sel, vals.gather(-1, take), INF)
 
     def _scatter_offers(self, idx: torch.Tensor, val: torch.Tensor
                         ) -> torch.Tensor:
-        """The global offers vector a gathered delta buffer spells: +inf but
-        at its ids."""
+        """The global offers vector a gathered delta buffer spells (per
+        lane): +inf but at its ids."""
         n = self.cfg.num_vertices
-        base = torch.full((n,), INF, dtype=torch.float32, device=idx.device)
-        return base.scatter_reduce_(0, idx.clamp(0, n - 1).long(),
+        base = torch.full((*idx.shape[:-1], n), INF, dtype=torch.float32,
+                          device=idx.device)
+        return base.scatter_reduce_(-1, idx.clamp(0, n - 1).long(),
                                     torch.where(idx >= 0, val, INF), "amin")
 
     def _mark_ids(self, idx: torch.Tensor) -> torch.Tensor:
-        """bool[N] set at a gathered id buffer's ids (-1 = empty)."""
+        """bool[N] (per lane) set at a gathered id buffer's ids (-1 =
+        empty)."""
         n = self.cfg.num_vertices
-        base = torch.zeros(n, dtype=torch.uint8, device=idx.device)
-        return base.scatter_reduce_(0, idx.clamp(0, n - 1).long(),
+        base = torch.zeros((*idx.shape[:-1], n), dtype=torch.uint8,
+                           device=idx.device)
+        return base.scatter_reduce_(-1, idx.clamp(0, n - 1).long(),
                                     (idx >= 0).to(torch.uint8), "amax"
                                     ).bool()
 
-    def _offers_delta(self, dist: Parts, frontier: Parts,
-                      overflow: bool) -> Parts:
+    @staticmethod
+    def _per_lane(overflow, dense: Callable[[], list],
+                  sparse: Callable[[], list]) -> list:
+        """``dense()`` where ``overflow`` (a bool, or bool[S] per lane),
+        ``sparse()`` elsewhere — one per partition of a tensor or a tuple
+        of them, each ``[S, ...]``: one of the two when every lane agrees,
+        else both and a per-lane device select (the reference's
+        ``where(overflow[:, None], dense, sparse)``; the host flags are
+        copied to the device, not read)."""
+        if np.all(overflow):
+            return dense()
+        if not np.any(overflow):
+            return sparse()
+        flags = torch.as_tensor(np.asarray(overflow)[:, None])
+
+        def pick(a, b):
+            if isinstance(a, tuple):
+                return tuple(map(pick, a, b))
+            return torch.where(flags.to(a.device), a, b)
+
+        return list(map(pick, dense(), sparse()))
+
+    def _offers_delta(self, dist: Parts, frontier: Parts, overflow) -> Parts:
         """Delta exchange: each partition packs its frontier's (id, dist)
-        into its buffer and the small buffers are gathered; a round where
-        any partition overflows gathers the dense dist instead — every
-        source offers then, a superset of the frontier (exact; it costs
-        one wave's extra work, and moves the reference's round counts the
-        same way)."""
-        if overflow:
-            return self.all_gather(dist)
-        packs = [self._pack(p, f, d)
-                 for p, (f, d) in enumerate(zip(frontier, dist))]
-        return self.on_each_device(
-            self._scatter_offers, self.all_gather([i for i, _ in packs]),
-            self.all_gather([v for _, v in packs]))
+        into its buffer and the small buffers are gathered; a round (a lane)
+        where any partition overflows gathers the dense dist instead —
+        every source offers then, a superset of the frontier (exact; it
+        costs one wave's extra work, and moves the reference's round counts
+        the same way)."""
+        def sparse():
+            packs = [self._pack(p, f, d)
+                     for p, (f, d) in enumerate(zip(frontier, dist))]
+            return self.on_each_device(
+                self._scatter_offers, self.all_gather([i for i, _ in packs]),
+                self.all_gather([v for _, v in packs]))
+
+        return self._per_lane(overflow, lambda: self.all_gather(dist), sparse)
 
     def _relax_body(self, dist: Parts, parent: Parts, frontier: Parts,
-                    wave: MeshWave
-                    ) -> tuple[Parts, Parts, int, torch.Tensor]:
+                    wave: MeshWave):
         """Relaxation rounds to fixpoint (or ``max_rounds``) with the given
         mesh wave.  Returns (dist, parent, rounds, messages); messages count
-        DistanceUpdate deliveries — improvements summed over partitions."""
+        DistanceUpdate deliveries — improvements summed over partitions —
+        and a lane stack counts both per lane."""
         delta = self.cfg.exchange == "delta"
-        rounds = 0
-        msgs = torch.zeros((), dtype=torch.int64, device=self.dev0)
+        rounds = relax.no_rounds(dist[0])
+        msgs = torch.zeros(dist[0].shape[:-1], dtype=torch.int64,
+                           device=self.dev0)
         go, overflow = self._go(frontier, delta)
-        while go and not (self.cfg.max_rounds
-                          and rounds >= self.cfg.max_rounds):
+        while np.any(go) and not (self.cfg.max_rounds
+                                  and np.max(rounds) >= self.cfg.max_rounds):
             offers = (self._offers_delta(dist, frontier, overflow) if delta
                       else self._offers_allgather(dist, frontier))
             dist, parent, frontier = self._apply_wave(dist, parent, wave,
                                                       offers)
             msgs = msgs + self.psum(self._counts(frontier))
-            rounds += 1
+            rounds = rounds + go
             go, overflow = self._go(frontier, delta)
         return dist, parent, rounds, msgs
 
     # ---------------------------------------------------------- invalidation
-    def _invalidate_doubling(self, parent: Parts, seed: Parts
+    # ``gate`` (True, or bool[S] per lane) lets through the lanes that
+    # seeded: a gated-out lane has an empty seed, whose marking stays empty,
+    # so the whole stack steps together and only the counts are per lane.
+    def _mark_loop(self, step, gate=True):
+        """Run ``step() -> grew`` (a device flag, per lane) while a lane
+        grows, counting each lane's rounds while its own ``grew & gate``
+        held; one read a round."""
+        live = gate
+        rounds = 0 if np.ndim(gate) == 0 else np.zeros(len(gate), np.int64)
+        while np.any(live):
+            grew = step()
+            rounds = rounds + live
+            live = live & self._read(grew)[0]
+        return rounds
+
+    def _invalidate_doubling(self, parent: Parts, seed: Parts, gate=True
                              ) -> tuple[Parts, int]:
         """Pointer-doubling subtree marking with dense all_gathers of the
         (aff, ptr) vectors on every step — O(log depth) rounds."""
-        aff, ptr, rounds = list(seed), list(parent), 0
-        while True:
+        aff, ptr = list(seed), list(parent)
+
+        def step():
             aff_full, par_full = self.all_gather(aff), self.all_gather(ptr)
-            new_aff, nxt, grew = [], [], []
+            grew = []
             for p in range(self.P):
                 valid = ptr[p] >= 0
                 safe = ptr[p].clamp(min=0).long()
-                a = aff[p] | (valid & aff_full[p][safe])
-                n = torch.where(valid, par_full[p][safe], NO_PARENT)
-                grew.append(((a != aff[p]).any() | (n != ptr[p]).any()
+                a = aff[p] | (valid & aff_full[p].gather(-1, safe))
+                n = torch.where(valid, par_full[p].gather(-1, safe),
+                                NO_PARENT)
+                grew.append(((a != aff[p]).any(-1) | (n != ptr[p]).any(-1)
                              ).to(torch.int32))
-                new_aff.append(a)
-                nxt.append(n)
-            aff, ptr = new_aff, nxt
-            rounds += 1
-            if not self._read(self.psum(grew) > 0)[0]:
-                return aff, rounds
+                aff[p], ptr[p] = a, n
+            return self.psum(grew) > 0
 
-    def _invalidate_flood_dense(self, parent: Parts, seed: Parts
+        return aff, self._mark_loop(step, gate)
+
+    def _invalidate_flood_dense(self, parent: Parts, seed: Parts, gate=True
                                 ) -> tuple[Parts, int]:
         """The paper's level-by-level SetToInfinity flood with dense aff
         gathers — one round per tree level, the rounds of
         ``delete.mark_subtree_flood``."""
         has = [q >= 0 for q in parent]
         safe = [q.clamp(min=0).long() for q in parent]
-        aff, rounds = list(seed), 0
-        while True:
-            aff_full = self.all_gather(aff)
-            new = [aff[p] | (has[p] & aff_full[p][safe[p]])
-                   for p in range(self.P)]
-            grew = self.psum([(a != b).sum() for a, b in zip(new, aff)])
-            aff = new
-            rounds += 1
-            if not self._read(grew > 0)[0]:
-                return aff, rounds
+        aff = list(seed)
 
-    def _invalidate_delta(self, parent: Parts, seed: Parts, overflow: bool
-                          ) -> tuple[Parts, int]:
+        def step():
+            aff_full = self.all_gather(aff)
+            new = [aff[p] | (has[p] & aff_full[p].gather(-1, safe[p]))
+                   for p in range(self.P)]
+            grew = self.psum([(a != b).sum(-1) for a, b in zip(new, aff)])
+            aff[:] = new
+            return grew > 0
+
+        return aff, self._mark_loop(step, gate)
+
+    def _invalidate_delta(self, parent: Parts, seed: Parts, overflow,
+                          gate=True) -> tuple[Parts, int]:
         """The SetToInfinity flood with delta-compressed exchange: each
         round gathers only the NEWLY affected ids (a ``delta_cap`` buffer
-        per partition); a round where any partition overflows gathers the
-        dense aff.  ``overflow`` is the seed's (read with the epoch's seed
-        flag)."""
+        per partition and lane); a round (a lane) where any partition
+        overflows gathers the dense aff.  ``overflow`` is the seed's (read
+        with the epoch's seed flag); each round reads the next one with its
+        own go flag."""
         has = [q >= 0 for q in parent]
         safe = [q.clamp(min=0).long() for q in parent]
-        aff, frontier, rounds = list(seed), list(seed), 0
-        while True:
-            if overflow:
-                base = self.all_gather(aff)
-            else:
-                ids = self.all_gather([self._pack(p, f, None)[0]
-                                       for p, f in enumerate(frontier)])
-                base = self.on_each_device(self._mark_ids, ids)
-            new = [has[p] & base[p][safe[p]] & ~aff[p] for p in range(self.P)]
-            aff = [a | n for a, n in zip(aff, new)]
-            frontier = new
-            rounds += 1
+        aff, frontier = list(seed), list(seed)
+        live = gate
+        rounds = 0 if np.ndim(gate) == 0 else np.zeros(len(gate), np.int64)
+        while np.any(live):
+            base = self._per_lane(
+                overflow, lambda: self.all_gather(aff),
+                lambda: self.on_each_device(self._mark_ids, self.all_gather(
+                    [self._pack(p, f, None)[0]
+                     for p, f in enumerate(frontier)])))
+            frontier = [has[p] & base[p].gather(-1, safe[p]) & ~aff[p]
+                        for p in range(self.P)]
+            aff = [a | n for a, n in zip(aff, frontier)]
+            rounds = rounds + live
             go, overflow = self._go(frontier, True)
-            if not go:
-                return aff, rounds
+            live = live & go
+        return aff, rounds
 
     # ----------------------------------------------------------- recompute
     def _recompute_pull_push(self, dist: Parts, parent: Parts, aff: Parts,
-                             wave: MeshWave
-                             ) -> tuple[Parts, Parts, int, torch.Tensor]:
+                             wave: MeshWave):
         """The bulk DistanceQuery as one unmasked pull wave (counted as one
         round, improvements folded into affected rows only — unaffected
         rows cannot improve on a converged tree), then push to fixpoint."""
@@ -406,29 +479,29 @@ class DistributedSSSP:
         return dist, parent, rounds + 1, msgs + n_pull
 
     def _recompute_delta(self, dist: Parts, parent: Parts, aff: Parts,
-                         pools: Sequence[EdgePool], wave: MeshWave
-                         ) -> tuple[Parts, Parts, int, torch.Tensor]:
+                         pools: Sequence[EdgePool], wave: MeshWave):
         """The bulk DistanceQuery in message form (paper Listing 9): each
         partition broadcasts the ids of the sources its affected vertices
-        need offers from (a ``delta_cap`` buffer, packed from its COO pool
-        slice); the owners of queried reachable vertices become the push
-        frontier, and delta rounds deliver the offers.  Overflow: every
-        reachable vertex pushes once.  The overflow choice is a device
+        need offers from (a ``delta_cap`` buffer per lane, packed from its
+        COO pool slice); the owners of queried reachable vertices become
+        the push frontier, and delta rounds deliver the offers.  Overflow:
+        every reachable vertex pushes once.  The overflow choice is a device
         select here (both operands are cheap), so it costs no read."""
         cap = self.cfg.delta_cap
         packs, over = [], []
         for p, e in enumerate(pools):
-            req = e.active & aff[p][(e.dst - p * self.npp).long()]
-            order = torch.argsort((~req).to(torch.uint8), stable=True)
-            take = order[:cap]
-            packs.append(torch.where(req[take], e.src[take], -1))
-            over.append(req.sum() > cap)
+            req = e.active & aff[p][..., (e.dst - p * self.npp).long()]
+            order = torch.argsort((~req).to(torch.uint8), dim=-1,
+                                  stable=True)
+            take = order[..., :cap]
+            packs.append(torch.where(req.gather(-1, take), e.src[take], -1))
+            over.append(req.sum(-1) > cap)
         overflow = self.psum(over) > 0
         queried = self.on_each_device(self._mark_ids,
                                       self.all_gather(packs))
         frontier0 = [
-            (overflow.to(d.device)
-             | queried[p][p * self.npp:(p + 1) * self.npp])
+            (overflow.to(d.device)[..., None]
+             | queried[p][..., p * self.npp:(p + 1) * self.npp])
             & torch.isfinite(d) for p, d in enumerate(dist)]
         return self._relax_body(dist, parent, frontier0, wave)
 
@@ -436,42 +509,55 @@ class DistributedSSSP:
     # The sharded rendering of core/buckets.run_drain: one pull wave into
     # the accumulated invalidated set, then bucket-paced push waves.  The
     # bucket limit comes from the same gathered data a round exchanges, so
-    # every partition derives the same (cur, limit) and the wave sequence —
-    # hence (dist, parent) and the counters — is the single-device drain's.
-    def _bucket_offers_allgather(self, dist: Parts, push: Parts,
-                                 bucket_width: float
-                                 ) -> tuple[Parts, Parts]:
+    # every partition derives the same (cur, limit) — per lane, ``[S, 1]``
+    # for a lane stack — and the wave sequence, hence (dist, parent) and
+    # the counters, is the single-device drain's.
+    @staticmethod
+    def _dense_bucket(bucket_width: float):
         def offers_of(dist_full, push_full):
-            cur = torch.where(push_full, dist_full, INF).amin()
+            cur = torch.where(push_full, dist_full, INF).amin(-1,
+                                                              keepdim=True)
             limit = bucket_limit(cur, bucket_width)
             act = push_full & ((dist_full < limit) | (dist_full == cur))
             return cur, limit, torch.where(act, dist_full, INF)
 
-        return self._bucket_split(dist, push, self.on_each_device(
-            offers_of, self.all_gather(dist), self.all_gather(push)))
+        return offers_of
 
-    def _bucket_offers_delta(self, dist: Parts, push: Parts, overflow: bool,
+    def _bucket_offers_allgather(self, dist: Parts, push: Parts,
+                                 bucket_width: float
+                                 ) -> tuple[Parts, Parts]:
+        return self._bucket_split(dist, push, self.on_each_device(
+            self._dense_bucket(bucket_width), self.all_gather(dist),
+            self.all_gather(push)))
+
+    def _bucket_offers_delta(self, dist: Parts, push: Parts, overflow,
                              bucket_width: float) -> tuple[Parts, Parts]:
         """Delta drain wave: pack the WHOLE pending set (ids + dists); with
         no partition over its buffer every pending vertex is packed, so
-        ``cur`` from the packed values is exact.  Overflow falls back to the
-        dense gathers, still bucket-gated (a superset here would change the
-        wave sequence)."""
-        if overflow:
-            return self._bucket_offers_allgather(dist, push, bucket_width)
-
+        ``cur`` from the packed values is exact.  Overflow (per lane) falls
+        back to the dense gathers, still bucket-gated (a superset here
+        would change the wave sequence)."""
         def offers_of(idx, val):
-            cur = val.amin()
+            cur = val.amin(-1, keepdim=True)
             limit = bucket_limit(cur, bucket_width)
             act = (val < limit) | (val == cur)
             return cur, limit, self._scatter_offers(
                 idx, torch.where(act, val, INF))
 
-        packs = [self._pack(p, q, d)
-                 for p, (q, d) in enumerate(zip(push, dist))]
-        return self._bucket_split(dist, push, self.on_each_device(
-            offers_of, self.all_gather([i for i, _ in packs]),
-            self.all_gather([v for _, v in packs])))
+        def sparse():
+            packs = [self._pack(p, q, d)
+                     for p, (q, d) in enumerate(zip(push, dist))]
+            return self.on_each_device(
+                offers_of, self.all_gather([i for i, _ in packs]),
+                self.all_gather([v for _, v in packs]))
+
+        def dense():
+            return self.on_each_device(
+                self._dense_bucket(bucket_width), self.all_gather(dist),
+                self.all_gather(push))
+
+        return self._bucket_split(dist, push,
+                                  self._per_lane(overflow, dense, sparse))
 
     @staticmethod
     def _bucket_split(dist: Parts, push: Parts, got: list
@@ -486,23 +572,23 @@ class DistributedSSSP:
         return offers, active
 
     def _drain_body(self, dist: Parts, parent: Parts, push: Parts,
-                    pull: Parts, wave: MeshWave, bucket_width: float
-                    ) -> tuple[Parts, Parts, int, torch.Tensor]:
+                    pull: Parts, wave: MeshWave, bucket_width: float):
         """Sharded drain: (dist, parent, rounds, messages), the counters of
-        ``buckets.run_drain``.  The pull is one unmasked wave folded into
-        the ``pull`` rows, counted as a round when any partition pulled
-        (skipped, after one read, when none did)."""
+        ``buckets.run_drain`` (per lane for a lane stack).  The pull is one
+        unmasked wave folded into the ``pull`` rows, counted as a round in
+        each lane that pulled (skipped, after one read, when none did)."""
         delta = self.cfg.exchange == "delta"
-        msgs = torch.zeros((), dtype=torch.int64, device=self.dev0)
+        msgs = torch.zeros(dist[0].shape[:-1], dtype=torch.int64,
+                           device=self.dev0)
         (any_pull,) = self._read(self.psum(self._counts(pull)) > 0)
-        rounds = int(any_pull)
-        if any_pull:
+        rounds = relax.no_rounds(dist[0]) + any_pull
+        if np.any(any_pull):
             dist, parent, improved = self._apply_wave(
                 dist, parent, wave, self.all_gather(dist), only=pull)
             push = [q | i for q, i in zip(push, improved)]
             msgs = msgs + self.psum(self._counts(improved))
         go, overflow = self._go(push, delta)
-        while go:
+        while np.any(go):
             if delta:
                 offers, active = self._bucket_offers_delta(
                     dist, push, overflow, bucket_width)
@@ -513,7 +599,7 @@ class DistributedSSSP:
                                                       offers)
             push = [(q & ~a) | i for q, a, i in zip(push, active, improved)]
             msgs = msgs + self.psum(self._counts(improved))
-            rounds += 1
+            rounds = rounds + go
             go, overflow = self._go(push, delta)
         return dist, parent, rounds, msgs
 

@@ -16,6 +16,8 @@
                       mesh=make_mesh((8,), ("graph",),
                                      devices=[torch.device("cuda:0")] * 8),
                       relax_backend="ellpack")   # 8 partitions on one card
+    eng = make_engine(num_vertices=n, edge_capacity=m, sources=(0, 5, 9),
+                      partitions=2)          # sharded [S, N] lanes
 
 Selection rule (the reference's): ``mesh=`` or ``partitions=`` builds the
 sharded engine (``partitions=P`` makes a one-axis mesh over the first P
@@ -32,8 +34,8 @@ kernel switches (``ell_use_kernel``, and on one device ``sliced_fused`` and
 ``frontier_kernel``; they default to the kernel on a CUDA device and the
 plain torch version on the CPU; pass False to run the plain version on the
 card), the frontier (``frontier_mode``, ``frontier_cap``), the schedule
-(``wave_schedule``, ``bucket_width``), ``sources`` (one device only: the
-sharded lanes are not ported yet), ``batch_deletions``, ``use_doubling``,
+(``wave_schedule``, ``bucket_width``), ``sources`` (lanes on either
+engine), ``batch_deletions``, ``use_doubling``,
 ``on_duplicate``, ``alloc_impl``, ``device``, the sharded engine's
 ``exchange`` / ``delta_cap``, and the telemetry knobs (``observability``,
 ``obs_flight_capacity``, ``obs_watchdog``).

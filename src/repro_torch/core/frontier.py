@@ -397,33 +397,52 @@ def wrap_shard_wave(waves, pools, npp: int, cap: int):
     tie rule, so bit-identical.  ``offers`` already carry the frontier
     masking, so membership is ``active & isfinite(offers[src])``; unmasked
     pull waves overflow the cap and take the dense wave.  The reference
-    branches on the device (``lax.cond``); here the P partitions' counts
-    are read back in ONE host sync per wave and each partition branches on
-    the host — a sparse wave's second read, as the single-device sparse
-    wave reads its ladder's counts."""
+    branches on the device (``lax.cond``, both branches under its lane
+    ``vmap``); here the counts of every partition (and lane, for ``[S, N]``
+    offers: one ``[P, S]`` tensor) are read back in ONE host sync per wave
+    and each (partition, lane) branches on the host — a sparse wave's
+    second read, as the single-device sparse wave reads its ladder's
+    counts.  A partition's over-cap lanes share one dense wave (K1's lane
+    form on the ELL layouts); its other lanes compact one by one."""
+
+    def compact(e, o, c, cnt, p):
+        slots = torch.arange(1, cnt + 1, dtype=torch.int32, device=o.device)
+        at = torch.searchsorted(c, slots).clamp(max=len(c) - 1)
+        cs, cd, cw = e.src[at], e.dst[at], e.w[at]
+        cand = o[cs] + cw
+        dl = (cd - p * npp).clamp(0, npp - 1).long()
+        best = relax.segment_min(cand, dl, npp, INF)
+        hit = (cand == best[dl]) & (cand < INF)
+        return best, relax.segment_min(torch.where(hit, cs, relax.BIG), dl,
+                                       npp, relax.BIG)
 
     def wave(offers):
-        lives = [e.active & torch.isfinite(o[e.src])
+        lives = [e.active & torch.isfinite(o[..., e.src])
                  for e, o in zip(pools, offers)]
-        ecs = [torch.cumsum(m.to(torch.int32), 0, dtype=torch.int32)
+        ecs = [torch.cumsum(m.to(torch.int32), -1, dtype=torch.int32)
                for m in lives]
         dev0 = offers[0].device
-        counts = relax.host(torch.stack([c[-1].to(dev0) for c in ecs]))
+        counts = relax.host(torch.stack([c[..., -1].to(dev0) for c in ecs]))
         out = []
         for p, (e, o, c, cnt) in enumerate(zip(pools, offers, ecs, counts)):
-            if cnt > cap:
+            if o.dim() == 1:
+                out.append(waves[p](o) if cnt > cap
+                           else compact(e, o, c, int(cnt), p))
+                continue
+            dense = np.nonzero(cnt > cap)[0]
+            if len(dense) == len(cnt):
                 out.append(waves[p](o))
                 continue
-            slots = torch.arange(1, int(cnt) + 1, dtype=torch.int32,
-                                 device=o.device)
-            at = torch.searchsorted(c, slots).clamp(max=len(c) - 1)
-            cs, cd, cw = e.src[at], e.dst[at], e.w[at]
-            cand = o[cs] + cw
-            dl = (cd - p * npp).clamp(0, npp - 1).long()
-            best = relax.segment_min(cand, dl, npp, INF)
-            hit = (cand == best[dl]) & (cand < INF)
-            out.append((best, relax.segment_min(
-                torch.where(hit, cs, relax.BIG), dl, npp, relax.BIG)))
+            best = torch.empty((len(cnt), npp), dtype=torch.float32,
+                               device=o.device)
+            arg = torch.empty((len(cnt), npp), dtype=torch.int32,
+                              device=o.device)
+            if len(dense):
+                rows = torch.as_tensor(dense).to(o.device)
+                best[rows], arg[rows] = waves[p](o[rows])
+            for i in np.nonzero(cnt <= cap)[0]:
+                best[i], arg[i] = compact(e, o[i], c[i], int(cnt[i]), p)
+            out.append((best, arg))
         return out
 
     return wave

@@ -75,10 +75,17 @@ def segment_min(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
 
 
 def relax_round(dist: torch.Tensor, parent: torch.Tensor, edges: EdgePool,
-                frontier: torch.Tensor, *, num_vertices: int
+                frontier: torch.Tensor, *, num_vertices: int,
+                tie_perm: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One bulk message wave ([N] or [S, N] lanes over the shared pool).
-    Returns (dist, parent, new_frontier)."""
+    Returns (dist, parent, new_frontier).
+
+    ``tie_perm`` (i32[N], a permutation) overrides the tie order: the
+    parent is the minimizing src whose ``tie_perm[src]`` is smallest (a
+    second segment-min picks that src among the winners).  The
+    ReMo-from-scratch baseline draws one per query to model the async
+    runtime's arbitrary choice among equally short trees (paper §5.4)."""
     live = edges.active & frontier[..., edges.src]
     cand = torch.where(live, dist[..., edges.src] + edges.w, INF)
     best = segment_min(cand, edges.dst, num_vertices, INF)
@@ -86,8 +93,13 @@ def relax_round(dist: torch.Tensor, parent: torch.Tensor, edges: EdgePool,
     # argmin edge per dst, tie-break by smallest src id (deterministic; the
     # same rule every backend and the kernel apply)
     hit = live & (cand == best[..., edges.dst]) & improved[..., edges.dst]
-    cand_key = torch.where(hit, edges.src, BIG)
+    key = edges.src if tie_perm is None else tie_perm[edges.src.long()]
+    cand_key = torch.where(hit, key, BIG)
     new_parent = segment_min(cand_key, edges.dst, num_vertices, BIG)
+    if tie_perm is not None:
+        win = hit & (cand_key == new_parent[..., edges.dst])
+        new_parent = segment_min(torch.where(win, edges.src, BIG),
+                                 edges.dst, num_vertices, BIG)
     dist = torch.where(improved, best, dist)
     parent = torch.where(improved, new_parent, parent)
     return dist, parent, improved
@@ -120,16 +132,18 @@ def converged_loop(dist: torch.Tensor, parent: torch.Tensor,
 
 
 def relax_until_converged(sssp: SSSPState, edges: EdgePool,
-                          frontier: torch.Tensor, *, num_vertices: int
+                          frontier: torch.Tensor, *, num_vertices: int,
+                          tie_perm: torch.Tensor | None = None
                           ) -> tuple[SSSPState, RelaxStats]:
     """Run rounds until fixpoint (== the paper's epoch drain; it terminates:
-    distances strictly decrease and are bounded below).  The reference's
-    ``max_rounds`` bound serves only its sharded straggler path and comes
-    with the sharded engine."""
+    distances strictly decrease and are bounded below), with
+    ``relax_round``'s ``tie_perm``.  The reference's ``max_rounds`` bound
+    serves only its sharded straggler path (``DistConfig.max_rounds``
+    here)."""
 
     def wave(dist, parent, frontier):
         return relax_round(dist, parent, edges, frontier,
-                           num_vertices=num_vertices)
+                           num_vertices=num_vertices, tie_perm=tie_perm)
 
     dist, parent, rounds, msgs = converged_loop(
         sssp.dist, sssp.parent, frontier, wave)

@@ -105,6 +105,14 @@ class GraphState:
         )
 
 
+def degree_histogram(edges: EdgePool, num_vertices: int) -> torch.Tensor:
+    """In-degree of every vertex over active edges, i32[N] (diagnostics and
+    partitioning)."""
+    out = torch.zeros(num_vertices, dtype=torch.int32,
+                      device=edges.dst.device)
+    return out.index_add_(0, edges.dst.long(), edges.active.to(torch.int32))
+
+
 def validate_state(state: GraphState, num_vertices: int) -> dict[str, bool]:
     """Cheap invariant probes used by tests (computed on the state's device,
     returned as Python bools)."""

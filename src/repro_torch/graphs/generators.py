@@ -8,7 +8,9 @@ packages.
   1e-3: power-law in-degree hubs, the sliced backend's workload;
 * ``erdos_renyi`` — uniform random digraphs;
 * ``power_law_hubs`` — a few in-degree hubs on ~30 % of the edges (the
-  example's ``--power-law`` stream).
+  example's ``--power-law`` stream);
+* ``grid2d`` — a rows x cols lattice with unit weights (deep trees, ties
+  everywhere: the baselines' stability workload).
 """
 from __future__ import annotations
 
@@ -60,6 +62,27 @@ def erdos_renyi(n: int, m: int, *, seed: int = 0,
     src, dst = src[idx][:m], dst[idx][:m]
     lo, hi = weights
     w = (lo + (hi - lo) * rng.random(len(src))).astype(np.float32)
+    return n, src, dst, w
+
+
+def grid2d(rows: int, cols: int, *, bidirectional: bool = True,
+           weight: float = 1.0
+           ) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """rows x cols lattice; vertex id = r*cols + c.  Edges in the
+    reference's order: row-major, the right neighbour before the one
+    below, then (``bidirectional``) every reverse edge."""
+    n = rows * cols
+    v = np.arange(n, dtype=np.int64).reshape(rows, cols)
+    right = np.zeros((rows, cols), bool)
+    right[:, :-1] = True
+    down = np.zeros((rows, cols), bool)
+    down[:-1, :] = True
+    # per vertex: its right edge, then its down edge
+    src = np.stack([v, v], -1)[np.stack([right, down], -1)]
+    dst = np.stack([v + 1, v + cols], -1)[np.stack([right, down], -1)]
+    if bidirectional:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    w = np.full(len(src), weight, np.float32)
     return n, src, dst, w
 
 

@@ -1,7 +1,6 @@
 """Trace replayer: drive the port's engine from a recorded trace and
 measure the paper's serving metrics along the way (DESIGN.md §8); torch
-rendering of ``repro.serving.replay`` (the sharded engine is not ported
-yet, so every report is ``single/<backend>``).
+rendering of ``repro.serving.replay``.
 
 Deterministic by construction — the trace fixes the event order, the
 engines' epochs are deterministic, so two replays of the same trace on
@@ -34,7 +33,9 @@ from repro_torch.serving.trace import ServingTrace, TraceReader
 
 
 def _engine_label(engine: StreamEngineBase) -> str:
-    return f"single/{getattr(engine.cfg, 'relax_backend', '?')}"
+    kind = ("sharded" if type(engine).__name__.startswith("Sharded")
+            else "single")
+    return f"{kind}/{getattr(engine.cfg, 'relax_backend', '?')}"
 
 
 def replay_trace(engine: StreamEngineBase,

@@ -10,7 +10,9 @@ bucketed engines on the lane forms), and observability on the kernels'
 engines (bit-identical to it off), the card's histogram bucketing and the
 one-copy counter snapshot; K1 on each partition's block of the sharded
 engine's ELL and sliced layouts, and the sharded engine (P = 4 partitions
-stacked on the card) against the single-device engine on the card.
+stacked on the card) against the single-device engine on the card; K1's
+lane form on each partition's block of a sharded lane engine, and that
+engine (P = 8 on the card) against itself on the CPU.
 Every test here needs a CUDA device and skips without one (decided
 inside the test).  Tolerance: 0 — bit-identical — except the gradients of
 ``neighbor_reduce`` and ``bag_lookup``, whose backward scatters with
@@ -993,3 +995,79 @@ def test_sharded_engine_on_the_card_matches_single_device(cuda, knobs):
             np.testing.assert_array_equal(a.parent, b.parent)
     else:
         _same_runs(got, want)
+
+
+# ----------------------------------------------------- sharded [S, N] lanes --
+def _sharded_lanes(device, p, knobs, log_frac=1):
+    """The sharded lane engine (sources 3, 17, 40, 101) over the 2^12 ER
+    stream's first 1/log_frac, on ``device``: P partitions there."""
+    from repro_torch.launch.mesh import make_mesh
+    n, cap, log = _er12_stream()
+    mesh = make_mesh((p,), ("graph",), devices=[torch.device(device)] * p)
+    eng = make_engine(num_vertices=n, edge_capacity=cap,
+                      sources=(3, 17, 40, 101), mesh=mesh, device=device,
+                      batch_deletions=True, **knobs)
+    return eng, eng.ingest_log(log[:len(log) // log_frac])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("backend,init_k", [("ellpack", 2), ("ellpack", 8),
+                                            ("sliced", 1)])
+def test_k1_lanes_on_each_partition_block_of_a_sharded_layout(
+        cuda, lanes, backend, init_k):
+    """K1's lane form on every partition's own block (R = rows a partition
+    < N offers; sliced: each width run, a view at its cell offset, the
+    scalar variant where that offset is not 16-byte aligned) against the
+    gathered [S, N] offers of a sharded lane engine, bit for bit: the lane
+    plain version and S single-lane calls."""
+    knobs = (dict(relax_backend="ellpack", ell_init_k=init_k)
+             if backend == "ellpack" else
+             dict(relax_backend="sliced", sliced_slice_rows=64,
+                  sliced_hub_k=8, sliced_init_k=init_k))
+    eng, _ = _sharded_lanes("cuda", 8, knobs, log_frac=2)
+    gathered = eng.ds.all_gather(eng.dist)[0]
+    offers = _lanes_of(gathered[0], lanes, lanes)
+    offers[:min(lanes, 4)] = gathered[:min(lanes, 4)]
+    seen = set()
+    for st in eng.bk.states:
+        if backend == "ellpack":
+            blocks = [(st.nbr_idx, st.nbr_w)]
+            assert variant(*blocks[0]) == ("vector" if st.k % 4 == 0
+                                           else "scalar")
+        else:
+            blocks, off = [], 0
+            for k, cnt in csr.width_runs(st.widths):
+                rows = st.slice_rows * cnt
+                blocks.append((st.flat_idx[off:off + rows * k].view(rows, k),
+                               st.flat_w[off:off + rows * k].view(rows, k)))
+                off += rows * k
+        for idx, w in blocks:
+            assert idx.shape[0] < offers.shape[1]
+            seen.add(variant(idx, w))
+            _k1_lanes_equal(offers, idx, w)
+    assert seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(relax_backend="ellpack"),
+    dict(relax_backend="sliced", exchange="delta", delta_cap=64,
+         sliced_slice_rows=64, sliced_hub_k=8),
+    dict(relax_backend="ellpack", wave_schedule="buckets", bucket_width=1.0,
+         frontier_mode="sparse", frontier_cap=64)])
+def test_sharded_lane_engine_on_the_card_matches_cpu(cuda, knobs):
+    """The sharded lane engine at P = 8 on one card (K1's lane form once
+    per partition and wave) equals the same engine on the CPU (the plain
+    versions) at every query: dist, parent and the per-lane counters."""
+    before = ellpack_relax.lane_launches
+    eng, got = _sharded_lanes("cuda", 8, knobs)
+    assert ellpack_relax.lane_launches > before
+    _, want = _sharded_lanes("cpu", 8, knobs)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.dist, b.dist)
+        np.testing.assert_array_equal(a.parent, b.parent)
+        for k in ("rounds", "messages"):
+            np.testing.assert_array_equal(a.epoch_stats[k],
+                                          b.epoch_stats[k])

@@ -15,7 +15,8 @@ source) against the JAX engines, on meshes of the CPU device repeated.
     restore into a fresh engine at P = 8, ``on_duplicate="min"``;
   * observability: counters (the ``[P]`` per-partition vectors included),
     histograms and span counts equal to the JAX sharded engine's at P = 1;
-  * the factory's ValueErrors equal the reference's;
+  * the factory's ValueErrors equal the reference's, and it builds the
+    sharded engine (with lanes too: ``sources=``);
   * host reads: one read per wave for all partitions, as many at P = 8 as
     at P = 1;
   * the example ``examples/torch_sharded_streaming_sssp.py`` (``--device
@@ -370,9 +371,10 @@ def test_factory_builds_the_sharded_engine():
     one = make_engine(num_vertices=90, edge_capacity=600, partitions=1,
                       device="cpu")
     assert isinstance(one, ShardedSSSPDelEngine) and one.P == 1
-    with pytest.raises(ValueError, match="next slice"):
-        make_engine(num_vertices=8, edge_capacity=16, partitions=1,
-                    sources=(0, 1), device="cpu")
+    lanes = make_engine(num_vertices=8, edge_capacity=16, partitions=1,
+                        sources=(0, 1), device="cpu")
+    assert isinstance(lanes, ShardedSSSPDelEngine)
+    assert lanes.sources == (0, 1) and lanes.dist[0].shape == (2, 8)
     with pytest.raises(ValueError, match="device type"):
         from repro_torch.core.dist_engine import (ShardedEngineConfig,
                                                   ShardedSSSPDelEngine as E)

@@ -160,16 +160,33 @@ def test_validate_state_and_stability_match_reference():
     dict(mesh="cpu*2", sources=(0, 1)),
     dict(mesh="cpu*2", sources=(0, 1), relax_backend="ellpack")])
 def test_later_slices_raise_not_yet_ported(knobs):
-    """The sharded engine is ported for one source (test_torch_dist_engine
-    .py); its batched ``sources=`` lanes are still to come, and the
-    sharded config says so (the single-device engine serves ``sources``:
-    test_torch_serving.py)."""
+    """The knobs that raised "not yet ported" while the sharded engine
+    served one source now build its ``[S, N]`` lanes (the slice this test
+    waited for; test_torch_dist_lanes.py holds them against the JAX
+    engines): the factory returns the sharded engine, and on a small
+    stream each lane equals the single-device lane engine's."""
+    from repro_torch import ShardedSSSPDelEngine
+    from repro_torch.core import events as ev
     if knobs.get("mesh") == "cpu*2":
         from repro_torch.launch.mesh import make_mesh
         knobs = dict(knobs, mesh=make_mesh((2,), ("graph",),
                                            devices=["cpu", "cpu"]))
-    with pytest.raises(ValueError, match="not yet ported"):
-        make_engine(num_vertices=8, edge_capacity=8, device="cpu", **knobs)
+    eng = make_engine(num_vertices=8, edge_capacity=8, device="cpu", **knobs)
+    assert isinstance(eng, ShardedSSSPDelEngine)
+    single = {k: v for k, v in knobs.items()
+              if k not in ("partitions", "mesh")}
+    one = make_engine(num_vertices=8, edge_capacity=8, device="cpu",
+                      **single)
+    log = ev.EventLog.concatenate([
+        ev.adds([0, 1, 0, 3, 2], [1, 2, 3, 4, 5], [1.0, 2.0, 4.0, 1.0, 3.0]),
+        ev.dels([1], [2]), ev.adds([3], [2], [0.5])])
+    for e in (eng, one):
+        e.ingest_log(log)
+    a, b = eng.query(), one.query()
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    np.testing.assert_array_equal(a.epoch_stats["rounds"],
+                                  b.epoch_stats["rounds"])
 
 
 @pytest.mark.parametrize("knobs", [

@@ -47,7 +47,7 @@ SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.core.distributed",
                  "repro_torch.core.dist_engine",
                  "repro_torch.graphs.partition", "repro_torch.launch",
-                 "repro_torch.launch.mesh")
+                 "repro_torch.launch.mesh", "repro_torch.core.baseline")
 
 
 def test_port_imports_with_jax_and_repro_blocked():

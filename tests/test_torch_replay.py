@@ -391,6 +391,22 @@ def test_example_exits_2_on_bad_paths(flag, tmp_path):
     assert "error:" in proc.stderr
 
 
+def test_example_reports_the_remo_baseline():
+    """The generated-stream run prints the reference example's line: the
+    engine's query p50 beside the ReMo-from-scratch baseline's and the
+    speedup (on the CPU, a small RMAT stream)."""
+    import re
+    proc = _example("--device", "cpu", "--scale", "7")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = re.search(r"latency p50: ours ([\d.]+)ms \| ReMo-from-scratch "
+                     r"([\d.]+)ms \| speedup ([\d.]+)x", proc.stdout)
+    assert line, proc.stdout
+    ours, base, speedup = map(float, line.groups())
+    assert ours > 0 and base > 0
+    assert speedup == pytest.approx(base / ours, rel=0.06, abs=0.06)
+    assert re.search(r"^queries: [1-9]", proc.stdout, re.M)
+
+
 def test_example_replays_a_reference_trace_with_artifacts(tmp_path):
     """The example replays a trace the JAX package wrote, on the CPU, and
     writes the Chrome trace, the JSONL log and the Prometheus text; the
