@@ -139,6 +139,27 @@ Phases (any failure raises and exits non-zero):
      into a fresh engine, observability, RMAT(16) sliced (K1's lane form
      per width run and partition, both variants), and the batched BSP
      baseline's final dist against the engine's;
+  15. the GNN and recsys substrate at full width (no kernel: the
+     reference's GNNs aggregate with segment sums and DIN looks rows up
+     with plain indexing, so neither reaches K4 or K5): GraphSAGE,
+     MeshGraphNet, DimeNet and EquiformerV2 at their full CONFIG on
+     ``full_graph_sm`` (an Erdős–Rényi stand-in with Cora's 2,708 nodes
+     and 10,556 edges, d_feat 1,433, 7 classes, padded to 512) and on
+     ``molecule`` (128 graphs of 30 nodes and 64 edges; DimeNet with 8
+     triplets an edge): one AdamW train step on the card against the same
+     step on the CPU from the same initial state (loss, grad norm,
+     Adam's first moments, parameters; SUB_TOL), then SUB_STEPS steps
+     timed with CUDA events, peak memory and model TFLOP/s; GraphSAGE-
+     Reddit ``minibatch_lg`` through the ported ``NeighborSampler`` over a
+     stand-in with Reddit's 232,965 nodes and 114,615,892 edges (1,024
+     seeds, fanout (15, 10), d_feat 602, 41 classes; the sample's host
+     time, the step card against CPU, then timed); DIN at full CONFIG
+     (table 10,485,760 x 18): ``din_score`` at serve_p99 and a train step
+     at batch 512 card against CPU, then ``train_batch`` (65,536) steps
+     timed, serve_p99 latency p50/p99 over 50 calls, ``serve_bulk``
+     (262,144) rows/s, retrieval over RETRIEVAL_CUT candidates (cut from
+     1,000,000: the one-chain form's f32 intermediates outgrow the card)
+     held against ``din_score`` on the same user;
   11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
      with a ``lanes`` record of their lane forms; K1-K3 with
@@ -146,7 +167,7 @@ Phases (any failure raises and exits non-zero):
      ``sharded_launches``, its count in phase 13's full-width leg, a
      ``sharded`` record, and a ``sharded_lanes`` record of phase 14), and
      as the last line ``{"ok": true, "device": {...}}``.  Phases run in
-     the order 1-6, 8-10, 12, 13, 14, 7.
+     the order 1-6, 8-10, 12, 13, 14, 15, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -2317,6 +2338,414 @@ def sharded_lanes_cross_checks(torch) -> dict:
             "bsp_flush_p50_ms": float(np.median(lat)) * 1e3}
 
 
+# ------------- phase 15: the GNN and recsys substrate at full width --
+SUB_GNN = ("graphsage-reddit", "meshgraphnet", "dimenet", "equiformer-v2")
+SUB_STEPS = 3            # timed train steps a shape, after a warm one
+# card against CPU (both f32, TF32 off): index_add's atomics and cuBLAS
+# sum in their own orders, so results are close, not equal.  Loss and
+# grad norm relative to the CPU's; Adam's first moment (the clipped
+# gradient) within SUB_TOL["moment"] x the leaf's largest CPU entry, and
+# at least 1e-6 x the model's largest; parameters after the step within
+# 1e-6 where that gradient is significant, elsewhere within 2 lr
+SUB_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "moment": 1e-3, "score": 1e-5}
+F4_ARCHS = ("equiformer-v2",)   # NaN gradients at full depth: ROADMAP F4
+# EquiformerV2's f32 loss at full depth moves with the summation order
+# alone: the card's error against the CPU's f64 forward has ranged from
+# 0.03x to 2.5x the CPU's own f32 error, so the band is ten times it
+F4_BAND = 10.0
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892   # registry minibatch_lg
+RETRIEVAL_CUT = 262_144  # of retrieval_cand's 1,000,000 candidates
+CARD = "cuda"            # phase 15's device; "cpu" rehearses it on the host
+
+
+def step_both(torch, model_cpu, loss_fn, batch_cpu):
+    """One train step of the registry's optimizer on the CPU and on the
+    card from the same initial state.  Returns the step, [(model, AdamW
+    state, metrics)] for the CPU and the card, and the initial
+    parameters."""
+    import copy
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import steps as steps_mod
+    step = steps_mod.make_train_step(loss_fn, opt_mod.AdamWConfig(), 1)
+    card = copy.deepcopy(model_cpu).to(CARD)
+    old = {k: p.detach().clone() for k, p in model_cpu.named_parameters()}
+    out = []
+    for m, dev in ((model_cpu, "cpu"), (card, CARD)):
+        state = opt_mod.adamw_init(dict(m.named_parameters()))
+        metrics = step(m, state, {k: v.to(dev) for k, v in batch_cpu.items()})
+        out.append((m, state, {k: float(v) for k, v in metrics.items()}))
+    return step, out, old
+
+
+def hold_step(label, out, old) -> dict:
+    """Card against CPU after one step (see SUB_TOL); a NaN anywhere fails.
+    Returns the errors."""
+    (cpu, cs, cm), (card, ks, km) = out
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        errs[k] = abs(km[k] - cm[k]) / abs(cm[k])
+        assert errs[k] <= SUB_TOL[k], f"{label}: {k} {km[k]} vs CPU {cm[k]}"
+    moments = {k: v.numpy() for k, v in cs["m"].items()}
+    floor = 1e-6 * max(float(np.abs(v).max()) for v in moments.values())
+    card_p = dict(card.named_parameters())
+    errs["moment"] = errs["param"] = 0.0
+    for k, p in cpu.named_parameters():
+        g, gk = moments[k], ks["m"][k].cpu().numpy()
+        gmax = float(np.abs(g).max())
+        atol = max(SUB_TOL["moment"] * gmax, floor)
+        err = float(np.abs(gk - g).max())
+        errs["moment"] = max(errs["moment"], err / max(gmax, floor))
+        assert err <= atol, f"{label}: moment {k} off by {err}"
+        want, got = p.detach().numpy(), card_p[k].detach().cpu().numpy()
+        big = np.abs(g) > max(1e-4 * gmax, atol)
+        d = np.abs(got - want)[big]
+        errs["param"] = max(errs["param"], float(d.max()) if d.size else 0.0)
+        assert np.all(d <= 1e-6), f"{label}: {k} differs after the step"
+        assert np.all(np.abs(got - old[k].numpy())[~big] <= 2 * cm["lr"]), \
+            f"{label}: {k} moved too far"
+    return errs
+
+
+def hold_f4_step(torch, label, model_cpu, loss_fn, batch_cpu):
+    """EquiformerV2 at full depth (ROADMAP F4): the reference's gradients
+    are NaN, so its step makes every parameter NaN, and its f32 forward is
+    ill-conditioned.  The card's step is held by its loss, within
+    F4_BAND x the CPU's own f32 error (its f32 loss against the same
+    forward in f64, the reference's explicit f32 casts kept) of that f64
+    loss, and at least SUB_TOL["loss"]; and by its grad norm, NaN as the
+    reference's.  Returns the card's (model, state, metrics) and errors."""
+    import copy
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import steps as steps_mod
+    step = steps_mod.make_train_step(loss_fn, opt_mod.AdamWConfig(), 1)
+    card = copy.deepcopy(model_cpu).to(CARD)
+    with torch.no_grad():
+        l32 = float(loss_fn(model_cpu, batch_cpu)[0])
+        l64 = float(loss_fn(model_cpu.double(), {
+            k: v.double() if v.is_floating_point() else v
+            for k, v in batch_cpu.items()})[0])
+    state = opt_mod.adamw_init(dict(card.named_parameters()))
+    m = {k: float(v) for k, v in step(card, state, {
+        k: v.to(CARD) for k, v in batch_cpu.items()}).items()}
+    errs = {"loss": abs(m["loss"] - l32) / abs(l32),
+            "cpu_f32_vs_f64": abs(l32 - l64) / abs(l64),
+            "card_vs_f64": abs(m["loss"] - l64) / abs(l64)}
+    band = max(F4_BAND * errs["cpu_f32_vs_f64"], SUB_TOL["loss"])
+    assert errs["card_vs_f64"] <= band, \
+        f"{label}: loss {m['loss']} vs CPU f64 {l64} (f32 {l32})"
+    assert np.isnan(m["grad_norm"]), f"{label}: grad norm {m['grad_norm']}"
+    return step, (card, state, m), errs
+
+
+def timed_steps(torch, step, model, state, batches) -> tuple:
+    """``SUB_STEPS`` steps on the card, each between CUDA events, then one
+    more under torch.profiler (CUDA activity).  Returns (ms per step, peak
+    GB allocated during the timed steps, the profiled step's device time
+    (its kernels' sum) and host wall in ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for b in batches:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step(model, state, b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(model, state, batches[-1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    dev = sum(x.self_device_time_total for x in prof.key_averages()) / 1e3
+    return ms, peak, {"device_ms": dev, "wall_ms": wall}
+
+
+def busy(prof: dict) -> str:
+    return (f"profiled step: device {prof['device_ms']:.3f} ms of "
+            f"{prof['wall_ms']:.3f} ms wall "
+            f"({prof['device_ms'] / prof['wall_ms']:.1%} busy)")
+
+
+def gnn_full_width(torch, shape: str) -> list:
+    """Each GNN at full CONFIG (the shape's d_feat and classes) on a shape
+    of the registry: full_graph_sm's Erdős–Rényi stand-in with Cora's
+    counts (node loss) or ``molecule`` (graph loss).  One step card
+    against CPU (EquiformerV2: ``hold_f4_step``), then SUB_STEPS timed."""
+    from functools import partial
+    from repro_torch.configs import registry as reg
+    info = reg.GNN_SHAPES[shape]
+    recs = []
+    for arch in SUB_GNN:
+        t0 = time.perf_counter()
+        label = f"[15] {arch} {shape}"
+        node_loss, graph_loss, init_fn, pos, tri = reg._GNN_FNS[arch]
+        cfg = reg._gnn_resolve_cfg(reg.ARCHES[arch], info)
+        maker = reg.molecule_batch if info.get("graph") else reg.graph_batch
+        batch = maker(info, info.get("d_feat", 16), needs_pos=pos,
+                      needs_tri=tri, device="cpu", seed=SEED)
+        loss_fn = partial(graph_loss if info.get("graph") else node_loss,
+                          cfg=cfg)
+        model = init_fn(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        if arch in F4_ARCHS:
+            step, (card, state, m), errs = hold_f4_step(
+                torch, label, model, loss_fn, batch)
+            held = (f"card vs CPU loss {errs['loss']:.2e}; against the "
+                    f"CPU's f64 forward: card {errs['card_vs_f64']:.2e}, "
+                    f"CPU f32 {errs['cpu_f32_vs_f64']:.2e} (ill-conditioned"
+                    f"); grad norm NaN as the reference's (ROADMAP F4)")
+        else:
+            step, out, old = step_both(torch, model, loss_fn, batch)
+            errs = hold_step(label, out, old)
+            card, state, m = out[1]
+            del out, old
+            held = (f"card vs CPU loss {errs['loss']:.2e}, grad norm "
+                    f"{errs['grad_norm']:.2e}, moments {errs['moment']:.2e}"
+                    f" of the leaf's largest, params {errs['param']:.2e}")
+        del model
+        cb = {k: v.to(CARD) for k, v in batch.items()}
+        ms, peak, prof = timed_steps(torch, step, card, state,
+                                     [cb] * SUB_STEPS)
+        flops = reg._gnn_model_flops(arch, cfg, cb)
+        step_ms = float(np.mean(ms))
+        rec = {"arch": arch, "shape": shape, "ms": ms, "step_ms": step_ms,
+               "peak_gb": peak, "model_tflops": flops / step_ms / 1e9,
+               "profiled": prof,
+               "loss": m["loss"], "grad_norm": m["grad_norm"], **errs,
+               "seconds": time.perf_counter() - t0}
+        print(f"{label} (d_in {cfg.d_in}, n_out {cfg.n_out}; "
+              f"{tuple(cb['feats'].shape)} feats, {cb['src'].numel()} "
+              f"edges): loss {m['loss']:.6g}, grad norm {m['grad_norm']:.6g}"
+              f"; {held}; step {step_ms:.3f} ms ("
+              f"{', '.join(f'{x:.3f}' for x in ms)}), peak {peak:.2f} GB, "
+              f"{rec['model_tflops']:.2f} model TFLOP/s; {busy(prof)}; "
+              f"{rec['seconds']:.1f} s")
+        recs.append(rec)
+        del card, state, cb
+        torch.cuda.empty_cache()
+    return recs
+
+
+def reddit_minibatch(torch) -> dict:
+    """GraphSAGE-Reddit ``minibatch_lg``: the ported ``NeighborSampler``
+    over a stand-in with Reddit's nodes and edges (in-neighbours uniform
+    from SEED: per-node counts multinomial, ids uniform), 1,024 seeds,
+    fanout (15, 10), d_feat 602, 41 classes, padded to the registry's
+    169,984 nodes / 168,960 edges.  The first step card against CPU, then
+    SUB_STEPS timed, each on a fresh sample."""
+    from functools import partial
+    from repro_torch.configs import registry as reg
+    from repro_torch.graphs import sampler as smp
+    t0 = time.perf_counter()
+    info = reg.GNN_SHAPES["minibatch_lg"]
+    n, e = REDDIT_NODES, REDDIT_EDGES
+    rng = np.random.default_rng(SEED)
+    deg = rng.multinomial(e, np.full(n, 1.0 / n))
+    dst = np.repeat(np.arange(n, dtype=np.int32), deg)
+    src = rng.integers(0, n, e, dtype=np.int32)
+    t_graph = time.perf_counter() - t0
+    sampler = smp.NeighborSampler(n, src, dst)
+    t_build = time.perf_counter() - t0 - t_graph
+    del src, dst, deg
+    feats = rng.standard_normal((n, info["d_feat"]), dtype=np.float32)
+    labels = rng.integers(0, info["classes"], n)
+    node_loss, _, init_fn, _, _ = reg._GNN_FNS["graphsage-reddit"]
+    cfg = reg._gnn_resolve_cfg(reg.ARCHES["graphsage-reddit"], info)
+
+    def sample(i):
+        t = time.perf_counter()
+        b = reg.sampled_batch(sampler, rng.choice(n, info["batch_nodes"],
+                                                  replace=False),
+                              info, feats, labels, seed=SEED + i,
+                              device="cpu")
+        return b, (time.perf_counter() - t) * 1e3
+
+    batch, first_ms = sample(0)
+    model = init_fn(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    step, out, old = step_both(torch, model, partial(node_loss, cfg=cfg),
+                               batch)
+    errs = hold_step("[15] graphsage-reddit minibatch_lg", out, old)
+    card, state, m = out[1]
+    del out, model, old
+    samples = [sample(i + 1) for i in range(SUB_STEPS)]
+    sample_ms = [first_ms] + [s for _, s in samples]
+    cbs = [{k: v.to(CARD) for k, v in b.items()} for b, _ in samples]
+    ms, peak, prof = timed_steps(torch, step, card, state, cbs)
+    step_ms = float(np.mean(ms))
+    flops = reg._gnn_model_flops("graphsage-reddit", cfg, cbs[0])
+    live = [int(b["edge_mask"].sum()) for b in cbs]
+    rec = {"arch": "graphsage-reddit", "shape": "minibatch_lg",
+           "graph_s": t_graph, "sampler_build_s": t_build,
+           "sample_ms": sample_ms, "ms": ms, "step_ms": step_ms,
+           "peak_gb": peak, "model_tflops": flops / step_ms / 1e9,
+           "live_edges": live, "loss": m["loss"], "profiled": prof, **errs,
+           "seconds": time.perf_counter() - t0}
+    print(f"[15] graphsage-reddit minibatch_lg: stand-in graph {n} nodes / "
+          f"{e} edges made in {t_graph:.2f} s, NeighborSampler built in "
+          f"{t_build:.2f} s; batch {tuple(cbs[0]['feats'].shape)} feats, "
+          f"{cbs[0]['src'].numel()} edge slots ({live} live); sample + "
+          f"build_batch (host) {', '.join(f'{x:.1f}' for x in sample_ms)} "
+          f"ms; card vs CPU loss {errs['loss']:.2e}, grad norm "
+          f"{errs['grad_norm']:.2e}, moments {errs['moment']:.2e}; step "
+          f"{step_ms:.3f} ms ({', '.join(f'{x:.3f}' for x in ms)}), peak "
+          f"{peak:.2f} GB, {rec['model_tflops']:.2f} model TFLOP/s; "
+          f"{busy(prof)}; {rec['seconds']:.1f} s")
+    del card, state, cbs, feats, sampler
+    torch.cuda.empty_cache()
+    return rec
+
+
+def latency_ms(torch, fn, calls: int) -> list:
+    """Host wall of ``calls`` calls of fn(), each synchronised, after a
+    warm call; ms each."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def din_full_width(torch) -> dict:
+    """DIN at full CONFIG (item table 10,485,760 x 18, 1,024 categories,
+    seq_len 100): din_score at serve_p99 and one train step at batch 512
+    with the full table, card against CPU from the same state; then on
+    the card: train_batch (65,536) SUB_STEPS timed steps, serve_p99
+    latency over 50 calls, serve_bulk (262,144) one forward, retrieval
+    over RETRIEVAL_CUT candidates (checked against din_score on the same
+    user and its first 512 candidates)."""
+    import copy
+    from functools import partial
+    from repro_torch.configs import din as c_din
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import din as din_mod
+    t0 = time.perf_counter()
+    cfg = c_din.CONFIG
+    shapes = reg.DIN_SHAPES
+    model_cpu = din_mod.init_din(cfg, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+    t_init = time.perf_counter() - t0
+    serve = reg.click_batch(shapes["serve_p99"], cfg, device="cpu",
+                            seed=SEED)
+    serve_card = {k: v.to(CARD) for k, v in serve.items()}
+    small = reg.click_batch(dict(kind="train", batch=512), cfg,
+                            device="cpu", seed=SEED + 1)
+    # din_score card against CPU, from the initial state
+    card0 = copy.deepcopy(model_cpu).to(CARD)
+    with torch.no_grad():
+        want = din_mod.din_score(model_cpu, serve, cfg)
+        got = din_mod.din_score(card0, serve_card, cfg)
+    score_err = float((got.cpu() - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and score_err <= SUB_TOL["score"], \
+        f"[15] din_score serve_p99 off by {score_err}"
+    del card0, got
+    step, out, old = step_both(torch, model_cpu,
+                               partial(din_mod.din_loss, cfg=cfg), small)
+    errs = hold_step("[15] din train step (batch 512, full table)", out,
+                     old)
+    card, state, _ = out[1]
+    del out, model_cpu, old
+    train = {k: v.to(CARD) for k, v in reg.click_batch(
+        shapes["train_batch"], cfg, device="cpu", seed=SEED + 2).items()}
+    step(card, state, train)          # warm
+    ms, peak, prof = timed_steps(torch, step, card, state,
+                                 [train] * SUB_STEPS)
+    step_ms = float(np.mean(ms))
+    train_flops = reg._din_flops(cfg, shapes["train_batch"]["batch"]) * 3
+    del train
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        lat = latency_ms(torch, lambda: din_mod.din_score(card, serve_card,
+                                                          cfg), 50)
+        serve_peak = torch.cuda.max_memory_allocated() / 2**30
+        n_bulk = shapes["serve_bulk"]["batch"]
+        bulk = {k: v.to(CARD) for k, v in reg.click_batch(
+            shapes["serve_bulk"], cfg, device="cpu", seed=SEED + 3).items()}
+        torch.cuda.reset_peak_memory_stats()
+        bulk_ms = latency_ms(torch, lambda: din_mod.din_score(card, bulk,
+                                                              cfg), 1)[0]
+        bulk_peak = torch.cuda.max_memory_allocated() / 2**30
+        out_b = din_mod.din_score(card, bulk, cfg)
+        assert bool(((out_b >= 0) & (out_b <= 1)).all())
+        del bulk, out_b
+        torch.cuda.empty_cache()
+        rinfo = dict(shapes["retrieval_cand"], n_cand=RETRIEVAL_CUT)
+        rb = {k: v.to(CARD) for k, v in reg.click_batch(
+            rinfo, cfg, device="cpu", seed=SEED + 4).items()}
+        torch.cuda.reset_peak_memory_stats()
+        r_ms = latency_ms(torch, lambda: din_mod.din_retrieval(card, rb, cfg),
+                          1)[0]
+        r_peak = torch.cuda.max_memory_allocated() / 2**30
+        scores = din_mod.din_retrieval(card, rb, cfg)
+        k = 512
+        as_rows = {"target_item": rb["cand_items"][:k],
+                   "target_cate": rb["cand_cates"][:k],
+                   "hist_items": rb["hist_items"].expand(k, -1),
+                   "hist_cates": rb["hist_cates"].expand(k, -1),
+                   "hist_mask": rb["hist_mask"].expand(k, -1)}
+        r_err = float((scores[:k] - din_mod.din_score(card, as_rows, cfg))
+                      .abs().max())
+        assert bool(torch.isfinite(scores).all()) and \
+            r_err <= SUB_TOL["score"], f"[15] retrieval off by {r_err}"
+        del rb, scores
+    rec = {"init_s": t_init, "score_err": score_err, **errs,
+           "train_ms": ms, "train_step_ms": step_ms, "train_peak_gb": peak,
+           "train_model_tflops": train_flops / step_ms / 1e9,
+           "train_profiled": prof,
+           "serve_p50_ms": float(np.percentile(lat, 50)),
+           "serve_p99_ms": float(np.percentile(lat, 99)),
+           "serve_peak_gb": serve_peak,
+           "bulk_ms": bulk_ms, "bulk_rows_per_s": n_bulk / bulk_ms * 1e3,
+           "bulk_peak_gb": bulk_peak, "retrieval_ms": r_ms,
+           "retrieval_cand_per_s": RETRIEVAL_CUT / r_ms * 1e3,
+           "retrieval_peak_gb": r_peak, "retrieval_err": r_err,
+           "seconds": time.perf_counter() - t0}
+    print(f"[15] DIN full CONFIG (table {cfg.n_items} x {cfg.embed_dim}, "
+          f"init on the host {t_init:.2f} s): din_score serve_p99 card vs "
+          f"CPU {score_err:.2e}; train step at batch 512 card vs CPU loss "
+          f"{errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e}, moments "
+          f"{errs['moment']:.2e}, params {errs['param']:.2e}; train_batch "
+          f"{shapes['train_batch']['batch']}: {step_ms:.3f} ms a step "
+          f"({', '.join(f'{x:.3f}' for x in ms)}), peak {peak:.2f} GB, "
+          f"{rec['train_model_tflops']:.2f} model TFLOP/s, {busy(prof)}; "
+          f"serve_p99 "
+          f"({shapes['serve_p99']['batch']}) p50 {rec['serve_p50_ms']:.3f} "
+          f"ms p99 {rec['serve_p99_ms']:.3f} ms over 50 calls, peak "
+          f"{serve_peak:.2f} GB (the model and AdamW state resident); "
+          f"serve_bulk "
+          f"({n_bulk}) {bulk_ms:.2f} ms = {rec['bulk_rows_per_s']:.4g} rows/s"
+          f", peak {bulk_peak:.2f} GB; retrieval {RETRIEVAL_CUT} candidates "
+          f"(cut from 1,000,000) {r_ms:.2f} ms = "
+          f"{rec['retrieval_cand_per_s']:.4g} candidates/s, peak "
+          f"{r_peak:.2f} GB, equal to din_score within {r_err:.2e}; "
+          f"{rec['seconds']:.1f} s")
+    del card, state, serve_card
+    torch.cuda.empty_cache()
+    return rec
+
+
+def substrate_path(torch) -> dict:
+    """Phase 15: the GNN and recsys substrate at full width (module
+    docstring)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    t0 = time.perf_counter()
+    recs = gnn_full_width(torch, "full_graph_sm")
+    recs += gnn_full_width(torch, "molecule")
+    recs.append(reddit_minibatch(torch))
+    din = din_full_width(torch)
+    seconds = time.perf_counter() - t0
+    print(f"[15] summary {json.dumps({'gnn': recs, 'din': din})}")
+    print(f"[15] phase 15 in {seconds:.1f} s")
+    return {"gnn": recs, "din": din, "seconds": seconds}
+
+
 # ------------------------------------------ phase 7: the K4 and K5 paths --
 DIN_ITEMS, DIN_DIM, DIN_SLOTS = 10 * 1024 * 1024, 18, 100   # configs/din.py
 
@@ -2550,6 +2979,9 @@ def main() -> int:
     lanes.update(sharded_lanes_cross_checks(torch))
     kernels[0]["sharded_lanes"] = lanes
     print(f"[14] phase 14 in {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. the GNN and recsys substrate at full width (no kernel)
+    substrate_path(torch)
 
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))

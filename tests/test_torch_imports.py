@@ -1,6 +1,6 @@
 """Import discipline of the port: ``repro_torch`` and every submodule import
 with ``jax`` and ``repro`` blocked, and no file of the port (nor
-``chip_smoke.py``, nor the port's example) imports either; the engine's
+``chip_smoke.py``, nor the port's examples) imports either; the engine's
 default device is CUDA with no silent CPU fallback."""
 import ast
 import os
@@ -47,7 +47,23 @@ SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.core.distributed",
                  "repro_torch.core.dist_engine",
                  "repro_torch.graphs.partition", "repro_torch.launch",
-                 "repro_torch.launch.mesh", "repro_torch.core.baseline")
+                 "repro_torch.launch.mesh", "repro_torch.core.baseline",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.steps", "repro_torch.train.data",
+                 "repro_torch.graphs.sampler", "repro_torch.graphs.triplets",
+                 "repro_torch.models", "repro_torch.models.params",
+                 "repro_torch.models.din", "repro_torch.models.gnn",
+                 "repro_torch.models.gnn.common",
+                 "repro_torch.models.gnn.graphsage",
+                 "repro_torch.models.gnn.meshgraphnet",
+                 "repro_torch.models.gnn.dimenet",
+                 "repro_torch.models.gnn.equiformer",
+                 "repro_torch.configs", "repro_torch.configs.registry",
+                 "repro_torch.configs.smoke", "repro_torch.configs.din",
+                 "repro_torch.configs.dimenet",
+                 "repro_torch.configs.equiformer_v2",
+                 "repro_torch.configs.graphsage_reddit",
+                 "repro_torch.configs.meshgraphnet")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -73,7 +89,8 @@ def _imported_modules(path: Path) -> set[str]:
                          + [ROOT / "chip_smoke.py",
                             ROOT / "examples" / "torch_streaming_sssp.py",
                             ROOT / "examples"
-                            / "torch_sharded_streaming_sssp.py"],
+                            / "torch_sharded_streaming_sssp.py",
+                            ROOT / "examples" / "torch_serve_din.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_jax_or_repro(path):
     bad = {m for m in _imported_modules(path)
