@@ -34,16 +34,20 @@ Phases (any failure raises and exits non-zero):
      reset just before and read just after; final snapshot against scipy's
      Dijkstra; K1 against its plain version and timed on the final block
      (three ways, as phase 7 times K4 and K5);
-     the host control plane (allocator + ELL planner) replayed alone; the
-     path re-run under torch.profiler for its device time;
+     the host control plane (allocator + ELL planner) replayed alone just
+     before the run, over the legs' cut (its first LEG_QUERIES queries),
+     against the run's wall at that query; the cut re-run under
+     torch.profiler for its device time;
   4. the hub path: ``relax_backend="auto"`` with no kernel flag (the card's
      default is K2) over the RMAT(20) stream of the same recipe (edge
      factor 8, seed 7; the dense ELL block falls back to the sliced layout
      at its first rebuild), K1 and K2 counts reset just before and read
      just after; Dijkstra check; K2 against its plain version and timed on
-     the final layout (three ways); the host control plane (allocator + sliced planner)
-     replayed alone; the path re-run under torch.profiler for its device
-     time and K2's share of it;
+     the final layout (three ways); the host control plane (allocator +
+     the dense ELL planner, then the sliced one from the blowup rebuild,
+     as the engine swaps) replayed alone just before the run over the
+     legs' cut, against the run's wall at that query; the cut re-run under
+     torch.profiler for its device time and K2's share of it;
   5. at 2^16 on the RMAT recipe: auto on K2 (the default), sliced on K1 per
      run of slices (K1's vector and scalar variants both), sliced plain and
      segment engines identical at every query;
@@ -71,11 +75,12 @@ Phases (any failure raises and exits non-zero):
      for sum and mean; never called by the port): back-to-back CUDA
      events, device time per call (a CUDA graph of 20 calls replayed, every
      kernel of the call) and host time per call (the submission alone);
-  8. the bucketed schedule: phases 3's and 4's 2^20 streams again under
+  8. the bucketed schedule: phases 3's and 4's 2^20 streams to their
+     LEG_QUERIES-th (21st) of 41 queries (the legs' cut) again under
      ``wave_schedule="buckets"`` (bucket_width 1.0, the same kernels by
      default), ``dist`` bit-identical to the rounds run at every query,
      Dijkstra on the final snapshot; waves, launches, events/s;
-  9. batched lanes: the same two streams with ``sources=`` the 4 vertices
+  9. batched lanes: the same two cuts with ``sources=`` the 4 vertices
      of highest in-degree (K1's and K2's lane forms, counted apart), lane
      0 equal to phases 3's / 4's run at every query, every lane through
      Dijkstra at the end; S x events / wall; each lane form timed at its
@@ -160,6 +165,33 @@ Phases (any failure raises and exits non-zero):
      (262,144) rows/s, retrieval over RETRIEVAL_CUT candidates (cut from
      1,000,000: the one-chain form's f32 intermediates outgrow the card)
      held against ``din_score`` on the same user;
+  16. the LM substrate at published widths (no kernel: the reference's
+     attention is a ``lax.scan`` with a custom VJP and its matmuls plain,
+     so neither reaches a ``pl.pallas_call``): (a) the five LM archs at
+     their CONFIG widths with one layer, B 1 x S 64, bf16 compute:
+     ``lm_loss`` and the global grad norm on the card against the port on
+     the CPU from the same seeded weights (LM_TOL; the CPU side on a host
+     thread while (b) and (c) run); (b) serving at full
+     CONFIG with bf16 weights for qwen3-14b (GQA, G = 5, qk-norm),
+     minicpm3-4b (MLA) and olmoe-1b-7b (MoE 64 experts top 8): prefill
+     1 x 16,384 (**cut** from prefill_32k's 32 x 32,768: time), then
+     decode_32k's capacity with the cache filled to 32,751 from a seeded
+     generator at B 4 / 32 / 8 (**cut** from 128: memory), a warm step
+     and DECODE_STEPS timed; prefill s and tokens/s, decode ms p50 and
+     tokens/s, peak GB, model TFLOP/s, a step's bytes and their share of
+     3.35 TB/s; and at 2 layers a prefill of 256 tokens then 8 decode
+     steps against ``lm_forward`` on the whole sequence; (c) training with
+     f32 master weights, AdamW and CONFIG's grad_accum, one sequence of
+     4,096 a microbatch (**cut** from train_4k's 256): minicpm3-4b at 16
+     of 62 layers and olmoe-1b-7b at 4 of 16 (**cut** to fit the
+     parameters, gradients and both moments), a warm step, 2 timed (the
+     second also profiled: device-busy share), finite loss and grad norm;
+     (d)
+     ``python -m repro_torch.launch.train`` (qwen3-14b, 100m preset)
+     crashed at step 15 (exit 17), resumed (exit 0), against an
+     uninterrupted run (LAUNCH_TOL); (e) the port's flash forward at
+     (b)'s qwen3 prefill shape beside ``F.scaled_dot_product_attention``
+     (printed only);
   11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
      with a ``lanes`` record of their lane forms; K1-K3 with
@@ -167,7 +199,7 @@ Phases (any failure raises and exits non-zero):
      ``sharded_launches``, its count in phase 13's full-width leg, a
      ``sharded`` record, and a ``sharded_lanes`` record of phase 14), and
      as the last line ``{"ok": true, "device": {...}}``.  Phases run in
-     the order 1-6, 8-10, 12, 13, 14, 15, 7.
+     the order 1-6, 8-10, 12, 13, 14, 15, 16, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -278,6 +310,33 @@ def control_plane_seconds(e: int, log, planner, plan) -> float:
         elif batch.kind == ev.DEL:
             alloc.plan_dels(batch.src, batch.dst)
     return time.perf_counter() - t0
+
+
+class AutoReplayPlanner:
+    """The host planning of ``relax_backend="auto"`` for
+    ``control_plane_seconds``: the dense ELL planner until a rebuild
+    reports hub blowup (the engine then builds no block), the sliced
+    planner from that rebuild on, as the engine swaps layouts."""
+
+    def __init__(self, n: int):
+        from repro_torch.core.backends.ellpack import EllPlanner
+        self.n, self.ell, self.sliced = n, EllPlanner(n), None
+
+    def plan_appends(self, p):
+        rows = p.dst[p.fresh].astype(np.int64)
+        if self.sliced is None:
+            return self.ell.plan_appends(rows)
+        return self.sliced.plan_appends(rows, p.src[p.fresh], p.w[p.fresh])
+
+    def rebuild_host(self, src, dst, w):
+        from repro_torch.core.backends.base import ELL_BLOWUP_RATIO
+        from repro_torch.core.backends.sliced import SlicedEllPlanner
+        if self.sliced is None:
+            k = self.ell.required_k(dst)
+            if self.ell.rows * k <= ELL_BLOWUP_RATIO * max(len(dst), 1):
+                return self.ell.rebuild_host(src, dst, w, k)
+            self.sliced = SlicedEllPlanner(self.n)
+        return self.sliced.rebuild_host(src, dst, w)
 
 
 def device_profile(torch, eng, log):
@@ -920,13 +979,19 @@ def dense_ell_path(torch, ctx):
     print(f"[3] ER stream: n={n} edges={e} events={len(log)} (topology "
           f"{n_topo}, dels {n_dels}) source={source}; built in "
           f"{time.perf_counter() - t0:.1f} s")
+    # the host control plane alone over the legs' cut (first LEG_QUERIES
+    # queries), just before the run whose wall at that query it is held
+    # against
+    cut = leg_cut(log)
+    host_s = control_plane_seconds(
+        e, cut, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
     eng = engine(n, e, source, relax_backend="ellpack")
     marks = []
     wall, res, (launches,) = run_path(torch, eng, log, [k1.ellpack_relax],
                                       marks)
     assert launches > 0, "the dense-ELL path never launched K1"
     ctx["er"] = dict(n=n, e=e, sources=sources, log=log, results=res,
-                     marks=marks)
+                     marks=marks, host_s=host_s)
     ell = eng.backend.state
     print(f"[3] dense-ELL path: {wall:.2f} s, {n_topo / wall:.0f} topology "
           f"events/s, {len(res)} queries, query p50 {p50_ms(res):.3f} ms, "
@@ -956,15 +1021,16 @@ def dense_ell_path(torch, ctx):
           f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); K1 device time on the path "
           f"~ {launches * times['device_ms'] / 1e3:.3f} s of {wall:.2f} s")
     del eng, offers, nbr_idx, nbr_w, ell, q
-    host_s = control_plane_seconds(
-        e, log, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
-    print(f"[3] host control plane alone (allocator + ELL planner, numpy): "
-          f"{host_s:.2f} s of the {wall:.2f} s run")
+    cut_wall = marks[LEG_QUERIES - 1][0]
+    print(f"[3] host control plane alone (allocator + ELL planner, numpy; "
+          f"replayed just before the run) on the first {LEG_QUERIES} "
+          f"queries' events: {host_s:.2f} s = {100 * host_s / cut_wall:.1f} "
+          f"% of the run's {cut_wall:.2f} s to that query")
     dev_s, top = device_profile(torch, engine(n, e, source,
-                                              relax_backend="ellpack"), log)
-    print(f"[3] device time (profiled re-run): {dev_s:.3f} s = "
-          f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
-          + top_ops(top))
+                                              relax_backend="ellpack"), cut)
+    print(f"[3] device time (profiled re-run of the same events): "
+          f"{dev_s:.3f} s = {100 * dev_s / cut_wall:.1f} % of "
+          f"{cut_wall:.2f} s; top: " + top_ops(top))
     k1_ops = [(sec, cnt) for name, sec, cnt in top
               if "ellpack_relax_kernel" in name]
     assert k1_ops, "the profiled dense-ELL path shows no K1 kernel"
@@ -984,7 +1050,6 @@ def hub_path(torch, ctx):
     """Phase 4: the RMAT(20) stream under auto (dense ELL, then sliced),
     every sliced wave on K2.  Keeps the stream and its query results in
     ``ctx["rmat"]``."""
-    from repro_torch.core.backends.sliced import SlicedEllPlanner
     from repro_torch.graphs import csr
     from repro_torch.kernels.relax import fused as k2
     from repro_torch.kernels.relax import relax as k1
@@ -996,6 +1061,10 @@ def hub_path(torch, ctx):
           f"{n_topo}, dels {n_dels}) source={source}; built in "
           f"{time.perf_counter() - t0:.1f} s")
     knobs = dict(relax_backend="auto")     # K2 by default on the card
+    # as phase 3: the cut's control plane alone, just before the run
+    cut = leg_cut(log)
+    host_s = control_plane_seconds(e, cut, AutoReplayPlanner(n),
+                                   lambda pl, p: pl.plan_appends(p))
     eng = engine(n, e, source, **knobs)
     marks = []
     wall, res, (l1, l2) = run_path(torch, eng, log,
@@ -1055,16 +1124,16 @@ def hub_path(torch, ctx):
           + "; ".join(f"{name.split('(')[0]} {t:.4f} ms" for name, t in passes))
     del eng, dist, active, st, q
 
-    host_s = control_plane_seconds(
-        e, log, SlicedEllPlanner(n),
-        lambda pl, p: pl.plan_appends(p.dst[p.fresh].astype(np.int64),
-                                      p.src[p.fresh], p.w[p.fresh]))
-    print(f"[4] host control plane alone (allocator + sliced planner, "
-          f"numpy): {host_s:.2f} s of the {wall:.2f} s run")
-    dev_s, top = device_profile(torch, engine(n, e, source, **knobs), log)
-    print(f"[4] device time (profiled re-run): {dev_s:.3f} s = "
-          f"{100 * dev_s / wall:.1f} % of the {wall:.2f} s run; top: "
-          + top_ops(top))
+    cut_wall = marks[LEG_QUERIES - 1][0]
+    print(f"[4] host control plane alone (allocator + dense ELL planner, "
+          f"then the sliced one from the blowup rebuild, numpy; replayed "
+          f"just before the run) on the first {LEG_QUERIES} queries' "
+          f"events: {host_s:.2f} s = {100 * host_s / cut_wall:.1f} % of the "
+          f"run's {cut_wall:.2f} s to that query")
+    dev_s, top = device_profile(torch, engine(n, e, source, **knobs), cut)
+    print(f"[4] device time (profiled re-run of the same events): "
+          f"{dev_s:.3f} s = {100 * dev_s / cut_wall:.1f} % of "
+          f"{cut_wall:.2f} s; top: " + top_ops(top))
     k2_ops = [(name, sec, cnt) for name, sec, cnt in top if "k2_" in name]
     assert k2_ops, "the profiled hub path shows no K2 kernel"
     print(f"[4] K2 device time on the path (profiled): "
@@ -1254,18 +1323,24 @@ def sparse_cross_check(torch) -> None:
 # ------------------------------ phases 8-10: buckets and batched lanes --
 LEGS = (("er", "ER dense-ELL (K1)", dict(relax_backend="ellpack")),
         ("rmat", "RMAT(20) auto (K2)", dict(relax_backend="auto")))
-# phases 8 and 9 run each 2^20 stream up to and including its 21st of 41
-# QUERY markers (about half the events), to stay in the time limit
+# phases 8 and 9 (and the replays of phases 3 and 4) run each
+# 2^20 stream up to and including its 21st of 41 QUERY markers (about half
+# the events: the window's fill and 11 sliding steps, deletions among
+# them), to stay in the time limit
 LEG_QUERIES = 21
 
 
-def leg_stream(c) -> tuple:
-    """The new legs' cut of a phase 3/4 stream: the log up to and including
-    its LEG_QUERIES-th QUERY marker, that run's results up to it, and the
-    rounds run's (wall s, waves) at that marker."""
-    log = c["log"]
+def leg_cut(log):
+    """The legs' cut of a phase 3/4 stream: the log up to and including its
+    LEG_QUERIES-th QUERY marker."""
     end = int(np.nonzero(np.asarray(log.kind) == 2)[0][LEG_QUERIES - 1]) + 1
-    return (log[:end], c["results"][:LEG_QUERIES],
+    return log[:end]
+
+
+def leg_stream(c) -> tuple:
+    """The legs' cut of a phase 3/4 stream, that run's results up to it,
+    and the rounds run's (wall s, waves) at its last marker."""
+    return (leg_cut(c["log"]), c["results"][:LEG_QUERIES],
             c["marks"][LEG_QUERIES - 1])
 
 
@@ -1784,7 +1859,6 @@ def sharded_full_width(torch, ctx) -> dict:
     messages), Dijkstra at the end; K1 on each partition's block against
     its plain version and timed; both host control planes replayed alone.
     Returns K1's sharded record."""
-    from repro_torch.core.backends.ellpack import EllPlanner
     from repro_torch.kernels.relax import relax as k1
     from repro_torch.kernels.relax.ref import ellpack_relax_ref
     c = ctx["er"]
@@ -1837,11 +1911,11 @@ def sharded_full_width(torch, ctx) -> dict:
     waves = eng.n_rounds
     c["sharded"] = res     # phase 14's lane 0 is held against it
     del eng, offers, st0, res
-    single_s = control_plane_seconds(
-        e, log, EllPlanner(n), lambda pl, p: pl.plan_appends(p.dst[p.fresh]))
+    single_s = c["host_s"]       # phase 3's replay of the same cut
     shard_s = sharded_control_plane_seconds(n, e, log)
     print(f"[13] host control plane alone on the cut (numpy): single "
-          f"allocator + ELL planner {single_s:.2f} s, {SHARDS} allocators + "
+          f"allocator + ELL planner {single_s:.2f} s (phase 3's replay), "
+          f"{SHARDS} allocators + "
           f"{SHARDS} planners {shard_s:.2f} s; sharded run {wall:.2f} s, "
           f"phase 3's {r_wall:.2f} s")
     return {"launches": launches, "waves": waves,
@@ -2746,6 +2820,528 @@ def substrate_path(torch) -> dict:
     return {"gnn": recs, "din": din, "seconds": seconds}
 
 
+# ------------- phase 16: the LM substrate at published widths --
+LM_ARCHS = ("qwen3-14b", "olmoe-1b-7b", "minicpm3-4b", "mistral-large-123b",
+            "moonshot-v1-16b-a3b")
+# card against CPU, both in the configs' bf16 compute (TF32 off): the bf16
+# tolerances the CPU tests state (tests/_lm_ref.py, test_torch_cuda_lm.py)
+LM_TOL = {"loss": 2e-3, "grad_norm": 1e-2, "logits": 3e-2}
+LM_WIDTH_SEQ = 64          # (a): B = 1, S = 64, one layer
+# (b): prefill B = 1 at S = 16,384 (cut from prefill_32k's 32 x 32,768:
+# time) and decode_32k's capacity with the cache at 32,751 (B cut from 128:
+# memory)
+LM_SERVE = {"qwen3-14b": 4, "minicpm3-4b": 32, "olmoe-1b-7b": 8}
+PREFILL_SEQ = 16_384
+DECODE_LEN = 32_751
+DECODE_STEPS = 16
+CHECK_PREFIX, CHECK_STEPS = 256, 8   # (b)'s consistency check, 2 layers
+# (c): layers kept (cut to fit params, grads and both moments), seq 4,096,
+# one sequence a microbatch (cut from train_4k's batch of 256)
+LM_TRAIN = {"minicpm3-4b": 16, "olmoe-1b-7b": 4}
+TRAIN_SEQ = 4096
+# (d): the launcher's crash-and-resume cycle, a save every 10 steps (each
+# copies the 1.4 GB of parameters and moments to the host); the resumed
+# run against an uninterrupted one: losses rtol, the final checkpoint's
+# leaves within this share of each leaf's largest entry (the card's
+# embedding backward and cuBLAS may sum in another order between runs)
+LAUNCH = dict(steps=30, fail_at=15, every=10)
+LAUNCH_TOL = {"loss": 1e-4, "leaf": 1e-4}
+
+
+def lm_batch(torch, cfg, B, S, seed, device, accum=1):
+    """A TokenStream batch (pre-split into ``accum`` microbatches when
+    accum > 1, as the train step takes it)."""
+    from repro_torch.train import data as data_mod
+    raw = data_mod.TokenStream(vocab_size=cfg.vocab_size, batch=B * accum,
+                               seq_len=S, seed=seed).next_batch()
+    out = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+    if accum > 1:
+        out = {k: v.reshape((accum, B) + tuple(v.shape[1:]))
+               for k, v in out.items()}
+    return out
+
+
+def lm_loss_and_norm(torch, model, cfg, batch):
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    loss, _ = tfm.lm_loss(model, batch, cfg)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    norm = opt_mod.global_norm(dict(enumerate(grads)))
+    return float(loss.detach()), float(norm)
+
+
+# (a)'s CPU side runs on a host thread with this many intra-op threads
+# while (b) and (c) run: theirs is device-bound work (long kernels, the
+# host far ahead), and the host keeps cores for its dispatch
+CPU_REF_THREADS = 6
+
+
+def lm_widths_start(torch) -> dict:
+    """(a) Every LM arch at its CONFIG widths with one layer, B = 1, S =
+    LM_WIDTH_SEQ: lm_loss and the global grad norm on the card now, and
+    the port on the CPU from the same seeded weights (drawn on the card,
+    copied to the CPU) on a host thread; ``lm_widths_finish`` holds one
+    against the other."""
+    import copy
+    import dataclasses
+    import threading
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import transformer as tfm
+    jobs = []
+    for arch in LM_ARCHS:
+        # one layer: mistral's sqrt remat (groups of 8) has groups of 1
+        cfg = dataclasses.replace(reg.arch(arch).CONFIG, n_layers=1,
+                                  remat_group=1)
+        gen = torch.Generator(device=CARD).manual_seed(SEED)
+        card = tfm.init_lm(cfg, gen, CARD)
+        batch = lm_batch(torch, cfg, 1, LM_WIDTH_SEQ, SEED, "cpu")
+        got = lm_loss_and_norm(torch, card, cfg,
+                               {k: v.to(CARD) for k, v in batch.items()})
+        jobs.append({"arch": arch, "cfg": cfg, "got": got, "batch": batch,
+                     "params": sum(p.numel() for p in card.parameters()),
+                     "cpu": copy.deepcopy(card).to("cpu")})
+        del card
+        torch.cuda.empty_cache()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(CPU_REF_THREADS, threads))
+
+    def work():
+        for job in jobs:
+            try:
+                t = time.perf_counter()
+                job["want"] = lm_loss_and_norm(torch, job.pop("cpu"),
+                                               job["cfg"], job["batch"])
+                job["cpu_s"] = time.perf_counter() - t
+            except Exception as exc:    # re-raised by lm_widths_finish
+                job["error"] = exc
+                return
+
+    worker = threading.Thread(target=work, daemon=True)
+    worker.start()
+    return {"jobs": jobs, "worker": worker, "threads": threads}
+
+
+def lm_widths_finish(torch, pending) -> list:
+    pending["worker"].join()
+    torch.set_num_threads(pending["threads"])
+    recs = []
+    for job in pending["jobs"]:
+        if "error" in job:
+            raise job["error"]
+        arch, cfg, got, want = (job["arch"], job["cfg"], job["got"],
+                                job["want"])
+        errs = {k: abs(g - w) / abs(w)
+                for k, g, w in zip(("loss", "grad_norm"), got, want)}
+        assert np.isfinite(got).all(), f"[16a] {arch}: {got}"
+        for k, e in errs.items():
+            assert e <= LM_TOL[k], f"[16a] {arch}: {k} {got} vs CPU {want}"
+        G = cfg.n_heads // cfg.n_kv_heads
+        rec = {"arch": arch, "params": job["params"], "loss": got[0],
+               "grad_norm": got[1], "cpu_loss": want[0],
+               "cpu_grad_norm": want[1], "err": errs, "cpu_s": job["cpu_s"]}
+        moe = (f", MoE {cfg.moe.n_experts} top {cfg.moe.top_k}"
+               if cfg.moe else "")
+        print(f"[16a] {arch} (d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, G {G}, {cfg.attn}{moe}"
+              f", vocab {cfg.padded_vocab}), 1 layer, "
+              f"{rec['params']:,} params: loss {got[0]:.6f} (CPU "
+              f"{want[0]:.6f}, rel {errs['loss']:.2e}), grad norm "
+              f"{got[1]:.6f} (CPU {want[1]:.6f}, rel "
+              f"{errs['grad_norm']:.2e}); CPU step {job['cpu_s']:.1f} s "
+              f"(on a host thread beside (b) and (c))")
+        recs.append(rec)
+    return recs
+
+
+def record_routing(moe_mod, log: list):
+    """Wraps ``moe.top_k`` so each call appends its chosen experts (the
+    wrapper is removed by the caller)."""
+    top_k = moe_mod.top_k
+
+    def wrapped(probs, k):
+        vals, idx = top_k(probs, k)
+        log.append(idx.cpu())
+        return vals, idx
+    moe_mod.top_k = wrapped
+    return top_k
+
+
+def serve_check(torch, arch) -> dict:
+    """(b)'s consistency check: full widths at 2 layers, bf16 weights: a
+    prefill of CHECK_PREFIX tokens, then CHECK_STEPS decode steps, against
+    lm_forward's logits on the whole sequence (LM_TOL["logits"] of the
+    largest logit).  The MoE arch runs with a capacity that drops nothing
+    (a decode step and the forward then route alike) and records each
+    position's experts in both paths: MoE routing is discontinuous, so a
+    position where a near-tied choice flipped between the one-token and
+    the full-sequence arithmetic is counted and not held; at least half
+    the positions must be held."""
+    import dataclasses
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(reg.arch(arch).CONFIG, n_layers=2)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 1)
+    model = tfm.init_lm(cfg, gen, CARD, dtype=torch.bfloat16)
+    n = CHECK_PREFIX + CHECK_STEPS
+    toks = lm_batch(torch, cfg, 1, n, SEED, CARD)["tokens"]
+    fwd_log, dec_log = [], []
+    orig = record_routing(moe_mod, fwd_log)
+    try:
+        with torch.no_grad():
+            want, _ = tfm.lm_forward(model, toks, cfg)
+        moe_mod.top_k = orig
+        _, cache = tfm.prefill(model, toks[:, :CHECK_PREFIX], cfg, n)
+        orig = record_routing(moe_mod, dec_log)
+        got = []
+        for s in range(CHECK_PREFIX, n):
+            k0 = len(dec_log)
+            logits, cache = tfm.decode_step(model, cache, toks[:, s], cfg)
+            got.append((s, logits, dec_log[k0:]))
+    finally:
+        moe_mod.top_k = orig
+    worst, flipped = 0.0, 0
+    for s, logits, routed in got:
+        if cfg.moe is not None:
+            fwd = [fwd_log[i][s] for i in range(cfg.n_layers)]
+            if any(not torch.equal(a[0], b) for a, b in zip(routed, fwd)):
+                flipped += 1
+                continue
+        w = want[0, s].float()
+        err = float((logits[0].float() - w).abs().max() / w.abs().max())
+        worst = max(worst, err)
+        assert err <= LM_TOL["logits"], \
+            f"[16b] {arch}: decode at {s} off by {err:.3e} of the largest"
+    assert flipped <= CHECK_STEPS // 2, f"[16b] {arch}: {flipped} flips"
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"worst": worst, "flipped": flipped}
+
+
+def cache_fill(torch, cache, length: int, seed: int):
+    """Fills the first ``length`` positions of a bf16 cache with N(0, 1)
+    from a seeded generator on the card."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    for t in (cache.k, cache.v):
+        for i in range(t.shape[0]):     # a layer at a time: no f32 copy
+            t[i, :, :length] = torch.randn(
+                t[i, :, :length].shape, generator=gen, device=CARD,
+                dtype=torch.bfloat16)
+    cache.length = length
+
+
+def serve_full(torch, arch) -> dict:
+    """(b) Serving at full CONFIG with bf16 weights (as the reference's
+    serving programs cast them): prefill B = 1 at PREFILL_SEQ, then
+    decode_32k's cache (capacity 32,768) filled to DECODE_LEN and
+    DECODE_STEPS timed steps after a warm one at batch LM_SERVE[arch];
+    then the 2-layer consistency check."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    cfg = reg.arch(arch).CONFIG
+    B = LM_SERVE[arch]
+    cap = reg.LM_SHAPES["decode_32k"]["seq"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    model = tfm.init_lm(cfg, gen, CARD, dtype=torch.bfloat16)
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    rec = {"arch": arch, "weights_gb": w_bytes / 1e9}
+    # prefill: a short warm-up, then PREFILL_SEQ tokens once
+    tfm.prefill(model, lm_batch(torch, cfg, 1, 512, SEED, CARD)["tokens"],
+                cfg, 512)
+    toks = lm_batch(torch, cfg, 1, PREFILL_SEQ, SEED, CARD)["tokens"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = tfm.prefill(model, toks, cfg, PREFILL_SEQ)
+    torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t
+    assert bool(torch.isfinite(logits[0, -1].float()).all()), arch
+    assert cache.length == PREFILL_SEQ
+    rec["prefill_tok_s"] = PREFILL_SEQ / rec["prefill_s"]
+    rec["prefill_tflops"] = cfg.model_flops(PREFILL_SEQ, train=False) \
+        / rec["prefill_s"] / 1e12
+    rec["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    del logits, cache
+    torch.cuda.empty_cache()
+    # decode at the 32k cache
+    torch.cuda.reset_peak_memory_stats()
+    cache = tfm.init_cache(cfg, B, cap, device=CARD)
+    cache_fill(torch, cache, DECODE_LEN, SEED + 2)
+    rec["cache_gb"] = (cache.k.numel() + cache.v.numel()) * 2 / 1e9
+    step_toks = lm_batch(torch, cfg, B, DECODE_STEPS + 1, SEED + 3,
+                         CARD)["tokens"]
+    logits, cache = tfm.decode_step(model, cache, step_toks[:, 0], cfg)
+    ms = []
+    for s in range(1, DECODE_STEPS + 1):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        logits, cache = tfm.decode_step(model, cache, step_toks[:, s], cfg)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    assert cache.length == DECODE_LEN + DECODE_STEPS + 1
+    assert bool(torch.isfinite(logits.float()).all()), arch
+    p50 = float(np.median(ms))
+    # bytes a step must move: every weight but the embedding table (B rows
+    # of it), the valid cache read once, the new rows written
+    per_tok = (cache.k[0, 0, 0].numel() + cache.v[0, 0, 0].numel()) * 2
+    length = DECODE_LEN + DECODE_STEPS // 2
+    emb = model.embed.numel() * 2
+    nbytes = (w_bytes - emb + B * cfg.d_model * 2
+              + cfg.n_layers * B * (length + 1) * per_tok)
+    rec.update(decode_batch=B, decode_ms_p50=p50,
+               decode_ms=[round(x, 3) for x in ms],
+               decode_tok_s=B / (p50 / 1e3),
+               decode_tflops=cfg.model_flops(B, train=False) / (p50 / 1e3)
+               / 1e12,
+               decode_bytes=nbytes,
+               decode_hbm_share=nbytes / (p50 / 1e3) / HBM_BYTES_PER_S,
+               decode_peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    rec["check"] = serve_check(torch, arch)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[16b] {arch} bf16 weights {rec['weights_gb']:.2f} GB: prefill "
+          f"1 x {PREFILL_SEQ} in {rec['prefill_s']:.3f} s "
+          f"({rec['prefill_tok_s']:.0f} tokens/s, model "
+          f"{rec['prefill_tflops']:.2f} TFLOP/s, peak "
+          f"{rec['prefill_peak_gb']:.2f} GB); decode B {B} at "
+          f"{DECODE_LEN} of {cap} (cache {rec['cache_gb']:.2f} GB): p50 "
+          f"{p50:.3f} ms a step, {rec['decode_tok_s']:.1f} tokens/s, model "
+          f"{rec['decode_tflops']:.3f} TFLOP/s, {nbytes / 1e9:.2f} GB a "
+          f"step = {rec['decode_hbm_share']:.1%} of 3.35 TB/s, peak "
+          f"{rec['decode_peak_gb']:.2f} GB; 2-layer prefill "
+          f"{CHECK_PREFIX} + {CHECK_STEPS} decode steps equal lm_forward "
+          f"within {rec['check']['worst']:.2e} of the largest logit "
+          f"({rec['check']['flipped']} positions with a flipped route); "
+          f"{rec['seconds']:.1f} s")
+    return rec
+
+
+def lm_timed_steps(torch, step, model, state, batches) -> tuple:
+    """One step a batch, each between CUDA events; the last also under
+    torch.profiler (CUDA activity: its device activities' sum against its
+    wall; the steps take seconds, so the profiler's own cost is small).
+    Returns (ms per step, peak GB, the profiled step's device and wall ms,
+    the last step's metrics)."""
+    from contextlib import nullcontext
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i, b in enumerate(batches):
+        last = i == len(batches) - 1
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with (profile(activities=[ProfilerActivity.CUDA]) if last
+              else nullcontext()) as prof:
+            t = time.perf_counter()
+            start.record()
+            m = step(model, state, b)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        ms.append(start.elapsed_time(end))
+    # the device activities' own durations (kernels, copies): the step
+    # records ~10^5 of them, which key_averages() would take seconds to
+    # group by name
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda) / 1e6
+    return (ms, torch.cuda.max_memory_allocated() / 2**30,
+            {"device_ms": dev, "wall_ms": wall},
+            {k: float(v) for k, v in m.items()})
+
+
+def train_full(torch, arch) -> dict:
+    """(c) Training at full widths, f32 master weights, AdamW, CONFIG's
+    grad_accum with one sequence of TRAIN_SEQ a microbatch, at
+    LM_TRAIN[arch] layers: a warm step, 2 timed (the second profiled)."""
+    import dataclasses
+    from functools import partial
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import steps as steps_mod
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(reg.arch(arch).CONFIG,
+                              n_layers=LM_TRAIN[arch])
+    A = cfg.grad_accum
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    model = tfm.init_lm(cfg, gen, CARD)
+    state = opt_mod.adamw_init(dict(model.named_parameters()))
+    step = steps_mod.make_train_step(partial(tfm.lm_loss, cfg=cfg),
+                                     opt_mod.AdamWConfig(), A)
+    batches = [lm_batch(torch, cfg, 1, TRAIN_SEQ, SEED + i, CARD, A)
+               for i in range(3)]
+    m = step(model, state, batches[0])
+    assert np.isfinite(float(m["loss"])) and \
+        np.isfinite(float(m["grad_norm"])), f"[16c] {arch}: {m}"
+    ms, peak, prof, m = lm_timed_steps(torch, step, model, state,
+                                       batches[1:])
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), arch
+    tokens = A * TRAIN_SEQ
+    mean = float(np.mean(ms))
+    rec = {"arch": arch, "layers": cfg.n_layers, "grad_accum": A,
+           "params": sum(p.numel() for p in model.parameters()),
+           "ms": ms, "tok_s": tokens / (mean / 1e3),
+           "tflops": cfg.model_flops(tokens) / (mean / 1e3) / 1e12,
+           "peak_gb": peak, "loss": m["loss"], "grad_norm": m["grad_norm"],
+           **prof}
+    del model, state, batches
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[16c] {arch} at {cfg.n_layers} layers "
+          f"({rec['params']:,} params f32), {A} microbatches of 1 x "
+          f"{TRAIN_SEQ}: {', '.join(f'{x:.1f}' for x in ms)} ms a step, "
+          f"{rec['tok_s']:.0f} tokens/s, model {rec['tflops']:.2f} "
+          f"TFLOP/s, peak {peak:.2f} GB, loss {m['loss']:.4f}, grad norm "
+          f"{m['grad_norm']:.4f}; {busy(prof)}; {rec['seconds']:.1f} s")
+    return rec
+
+
+def launcher_cycle(torch) -> dict:
+    """(d) ``python -m repro_torch.launch.train`` on the card: the 100m
+    preset crashed at LAUNCH["fail_at"] (exit 17) and resumed (exit 0),
+    against an uninterrupted run: the resumed steps' losses and the final
+    checkpoint within LAUNCH_TOL."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.train import checkpoint as ckpt_mod
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    procs = []
+
+    def start(ckpt, *extra):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen3-14b", "--preset", "100m", "--steps",
+             str(LAUNCH["steps"]), "--ckpt-dir", str(tmp / ckpt),
+             "--ckpt-every", str(LAUNCH["every"]), "--log-every", "1",
+             "--device", CARD, *extra], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(p)
+        return p
+
+    def finish(p, rc):
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == rc, (p.returncode, err[-3000:])
+        return out, {int(ln.split()[2]): float(ln.split()[4])
+                     for ln in out.splitlines()
+                     if ln.startswith("[train] step ")}
+
+    try:
+        # the uninterrupted run beside the crashed one (two processes on
+        # the card: their results do not depend on it, and the cycle's
+        # wall is a check here, not a measurement)
+        crashed, uninterrupted = (
+            start("a", "--fail-at-step", str(LAUNCH["fail_at"])), start("b"))
+        finish(crashed, 17)
+        out, resumed = finish(start("a", "--resume"), 0)
+        # the crash comes before its own step's save
+        start_step = ((LAUNCH["fail_at"] - 1) // LAUNCH["every"]
+                      * LAUNCH["every"])
+        assert f"resumed from step {start_step}" in out, out
+        _, whole = finish(uninterrupted, 0)
+        assert sorted(resumed) == list(range(start_step + 1,
+                                             LAUNCH["steps"] + 1))
+        loss_err = max(abs(resumed[s] - whole[s]) / abs(whole[s])
+                       for s in resumed)
+        assert loss_err <= LAUNCH_TOL["loss"], f"[16d] losses {loss_err}"
+        final = [ckpt_mod.load_leaves(str(tmp / d), LAUNCH["steps"])
+                 for d in ("a", "b")]
+        leaf_err = max(float(np.abs(x - y).max())
+                       / max(float(np.abs(y).max()), 1e-30)
+                       for x, y in zip(*final))
+        assert leaf_err <= LAUNCH_TOL["leaf"], f"[16d] checkpoint {leaf_err}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"loss_err": loss_err, "leaf_err": leaf_err,
+           "final_loss": whole[LAUNCH["steps"]],
+           "first_loss": whole[1], "leaves": len(final[0]),
+           "seconds": time.perf_counter() - t0}
+    print(f"[16d] launcher (qwen3-14b 100m preset) crashed at step "
+          f"{LAUNCH['fail_at']} (exit 17), resumed from {start_step} (exit "
+          f"0): losses {start_step + 1}..{LAUNCH['steps']} within "
+          f"{loss_err:.2e} of "
+          f"an uninterrupted run's, final checkpoint ({rec['leaves']} "
+          f"leaves) within {leaf_err:.2e} of each leaf's largest entry; "
+          f"loss {rec['first_loss']:.4f} -> {rec['final_loss']:.4f}; "
+          f"{rec['seconds']:.1f} s")
+    return rec
+
+
+def attention_times(torch) -> dict:
+    """(e) The port's flash forward at (b)'s qwen3 prefill shape (B = 1, S
+    = PREFILL_SEQ, 40 query / 8 kv heads, d 128, bf16 inputs) beside
+    ``F.scaled_dot_product_attention`` on the same inputs (causal, GQA):
+    printed only; neither is on a kernel path."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import flash
+    cfg = reg.arch("qwen3-14b").CONFIG
+    S, nq, nkv, D = PREFILL_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    q, k, v = (torch.randn((1, S, h, D), generator=gen, device=CARD,
+                           dtype=torch.bfloat16) for h in (nq, nkv, nkv))
+    with torch.no_grad():
+        ours = flash.flash_attention(q, k, v, True, cfg.block_k)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        err = float((ours.float() - lib.float()).abs().max())
+        flash_ms = cuda_ms(torch, lambda: flash.flash_attention(
+            q, k, v, True, cfg.block_k), 2)
+        sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+    # the scan computes every (query, key) pair in f32, masked or not
+    scan_flop = 2.0 * S * S * nq * 2 * D
+    causal_flop = scan_flop / 2
+    rec = {"flash_ms": flash_ms, "sdpa_ms": sdpa_ms, "max_abs_diff": err,
+           "flash_tflops": scan_flop / (flash_ms / 1e3) / 1e12,
+           "sdpa_tflops": causal_flop / (sdpa_ms / 1e3) / 1e12}
+    print(f"[16e] attention at qwen3's prefill shape (1 x {S}, {nq}/{nkv} "
+          f"heads, d {D}, bf16 in): the port's flash forward (f32 scan, "
+          f"block {cfg.block_k}) {flash_ms:.2f} ms ({rec['flash_tflops']:.1f}"
+          f" TFLOP/s of the {scan_flop / 1e12:.1f} TFLOP it computes), "
+          f"F.scaled_dot_product_attention {sdpa_ms:.2f} ms "
+          f"({rec['sdpa_tflops']:.1f} TFLOP/s of the causal "
+          f"{causal_flop / 1e12:.1f}); ratio {flash_ms / sdpa_ms:.1f}x; "
+          f"outputs within {err:.2e}")
+    del q, k, v, ours, lib
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_path(torch) -> dict:
+    """Phase 16: the LM substrate at published widths (module
+    docstring)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    t0 = time.perf_counter()
+    pending = lm_widths_start(torch)
+    rec = {"serve": [serve_full(torch, a) for a in LM_SERVE],
+           "train": [train_full(torch, a) for a in LM_TRAIN]}
+    rec["widths"] = lm_widths_finish(torch, pending)
+    rec["launcher"] = launcher_cycle(torch)
+    rec["attention"] = attention_times(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[16] summary {json.dumps(rec)}")
+    print(f"[16] phase 16 in {rec['seconds']:.1f} s")
+    return rec
+
+
 # ------------------------------------------ phase 7: the K4 and K5 paths --
 DIN_ITEMS, DIN_DIM, DIN_SLOTS = 10 * 1024 * 1024, 18, 100   # configs/din.py
 
@@ -2982,6 +3578,9 @@ def main() -> int:
 
     # ---- 15. the GNN and recsys substrate at full width (no kernel)
     substrate_path(torch)
+
+    # ---- 16. the LM substrate at published widths (no kernel)
+    lm_path(torch)
 
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))

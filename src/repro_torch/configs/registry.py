@@ -1,13 +1,14 @@
-"""Architecture/shape registry, the port's half: the GNN and recsys
-families (``ARCHES``), their shapes, the padded batch each shape takes, and
-the analytic FLOP counts.
+"""Architecture/shape registry: every arch of the reference (``ARCHES``:
+the LM, GNN, recsys and SSSP families), every (arch x input-shape) cell
+(``all_cells``), the padded batch each GNN and DIN shape takes, and the
+analytic FLOP counts (the LMs': ``LMConfig.model_flops``).
 
 ``_gnn_flat_batch`` / ``_gnn_mol_batch`` / ``_din_batch`` allocate, on a
 device, the padded shapes that the reference's ShapeDtypeStruct batches
 describe; ``graph_batch``, ``sampled_batch``, ``molecule_batch`` and
 ``click_batch`` fill them with seeded data.  ``build_program`` (programs
-sharded over a mesh) and the LM and SSSP families wait for the next slice
-of the port (13b) and raise ``ValueError`` naming it.
+lowered and sharded over a mesh) waits for the last slice of the port
+(13c) and raises ``ValueError`` naming it.
 """
 from __future__ import annotations
 
@@ -20,7 +21,13 @@ import torch
 from repro_torch.configs import (din as c_din, dimenet as c_dimenet,
                                  equiformer_v2 as c_eqv2,
                                  graphsage_reddit as c_sage,
-                                 meshgraphnet as c_mgn)
+                                 meshgraphnet as c_mgn,
+                                 minicpm3_4b as c_minicpm,
+                                 mistral_large_123b as c_mistral,
+                                 moonshot_v1_16b_a3b as c_moonshot,
+                                 olmoe_1b_7b as c_olmoe,
+                                 qwen3_14b as c_qwen,
+                                 sssp_del as c_sssp)
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs import sampler as sampler_mod
 from repro_torch.graphs import triplets as tri_mod
@@ -32,13 +39,20 @@ from repro_torch.models.gnn import (dimenet as dimenet_mod,
 from repro_torch.models.params import resolve_device
 from repro_torch.train import data as data_mod
 
-ARCHES = {m.ARCH_ID: m for m in (c_mgn, c_sage, c_dimenet, c_eqv2, c_din)}
+ARCHES = {
+    m.ARCH_ID: m for m in (
+        c_olmoe, c_moonshot, c_minicpm, c_mistral, c_qwen,
+        c_mgn, c_sage, c_dimenet, c_eqv2, c_din, c_sssp)
+}
 
-# the reference's other archs, with the slice of the port that brings them
-NOT_PORTED = {a: "13b" for a in (
-    "olmoe-1b-7b", "moonshot-v1-16b-a3b", "minicpm3-4b",
-    "mistral-large-123b", "qwen3-14b", "sssp-del")}
-
+LM_SHAPES = {
+    "train_4k":    dict(kind="train",   seq=4096,   batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768,  batch=32),
+    "decode_32k":  dict(kind="decode",  seq=32768,  batch=128),
+    "long_500k":   dict(kind="decode",  seq=524288, batch=1,
+                        skip="pure full-attention arch: 500k decode is "
+                             "sub-quadratic-only per the assignment"),
+}
 GNN_SHAPES = {
     "full_graph_sm": dict(kind="train", n=2708, e=10556, d_feat=1433,
                           classes=7),
@@ -55,6 +69,15 @@ DIN_SHAPES = {
     "serve_bulk":     dict(kind="serve", batch=262_144),
     "retrieval_cand": dict(kind="retrieval", batch=1, n_cand=1_000_000),
 }
+SSSP_SHAPES = {
+    "relax_rmat24":  dict(kind="relax", n=1 << 24, epp=1 << 20),
+    "delete_rmat24": dict(kind="delete", n=1 << 24, epp=1 << 20),
+    "relax_web1b":   dict(kind="relax", n=1 << 26, epp=1 << 22),
+    "delete_web1b":  dict(kind="delete", n=1 << 26, epp=1 << 22),
+}
+
+FAMILY_SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": DIN_SHAPES,
+                 "sssp": SSSP_SHAPES}
 
 # padding unit that divides both production meshes (256 and 512 devices)
 PAD = 512
@@ -64,21 +87,36 @@ def _pad(n: int, m: int = PAD) -> int:
     return -(-n // m) * m
 
 
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: str
+    kind: str
+    skip: str | None = None
+
+
+def all_cells(include_sssp: bool = True) -> list[Cell]:
+    cells = []
+    for arch_id, mod in ARCHES.items():
+        if mod.FAMILY == "sssp" and not include_sssp:
+            continue
+        for shape, info in FAMILY_SHAPES[mod.FAMILY].items():
+            cells.append(Cell(arch=arch_id, shape=shape, kind=info["kind"],
+                              skip=info.get("skip")))
+    return cells
+
+
 def arch(arch_id: str):
-    """The config module of a ported arch; ``ValueError`` for one that a
-    later slice brings."""
-    if arch_id in NOT_PORTED:
-        raise ValueError(f"arch {arch_id!r} is not ported yet: it comes "
-                         f"with slice {NOT_PORTED[arch_id]} of the port")
+    """The config module of an arch; ``ValueError`` for an unknown one."""
     if arch_id not in ARCHES:
-        raise ValueError(f"unknown arch {arch_id!r}; ported: "
+        raise ValueError(f"unknown arch {arch_id!r}; known: "
                          f"{sorted(ARCHES)}")
     return ARCHES[arch_id]
 
 
 def build_program(arch_id: str, shape: str, mesh=None, overrides=None):
-    raise ValueError("build_program (programs sharded over a mesh) comes "
-                     "with slice 13b of the port")
+    raise ValueError("build_program (programs lowered and sharded over a "
+                     "mesh) comes with slice 13c of the port")
 
 
 # ==================================================================== GNN ====

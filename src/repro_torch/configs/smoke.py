@@ -1,9 +1,10 @@
 """Reduced-config smoke programs: real (tiny) tensors, one train step on
 one device (``device``, default the card; tests pass ``"cpu"``).
 
-Every ported architecture gets: init -> one train step (forward + backward
-+ AdamW) -> metric dict, plus the molecule graph loss for the GNNs and
-retrieval for DIN.
+Every architecture gets: init -> one train step (forward + backward +
+AdamW) -> metric dict, plus a decode step for the LM family, the molecule
+graph loss for the GNNs and retrieval for DIN.  The SSSP family has its
+own tests and no smoke.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.configs import registry as reg
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs import triplets as tri_mod
 from repro_torch.models import din as din_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.models.params import resolve_device
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt_mod
@@ -31,6 +33,27 @@ def _on(arrays: dict, device) -> dict:
 
 def _host(metrics: dict) -> dict:
     return {k: float(v) for k, v in metrics.items()}
+
+
+def smoke_lm(arch_id: str, seed: int = 0, device="cuda") -> dict:
+    dev = resolve_device(device)
+    cfg = reg.arch(arch_id).REDUCED
+    model = tfm.init_lm(cfg, torch.Generator().manual_seed(seed), dev)
+    stream = data_mod.TokenStream(vocab_size=cfg.vocab_size, batch=2,
+                                  seq_len=16, seed=seed)
+    step = steps_mod.make_train_step(partial(tfm.lm_loss, cfg=cfg),
+                                     SMOKE_OPT, 1)
+    opt_state = opt_mod.adamw_init(dict(model.named_parameters()))
+    metrics = step(model, opt_state, _on(stream.next_batch(), dev))
+
+    # decode: 3 tokens against a small cache
+    cache = tfm.init_cache(cfg, batch=2, capacity=8, device=dev)
+    for t in range(3):
+        tok = torch.full((2,), t + 1, dtype=torch.int32, device=dev)
+        logits, cache = tfm.decode_step(model, cache, tok, cfg)
+    assert tuple(logits.shape) == (2, cfg.padded_vocab)
+    metrics["decode_finite"] = torch.all(torch.isfinite(logits.float()))
+    return _host(metrics)
 
 
 def _small_graph(seed=0, n=24, m=64):
@@ -123,6 +146,10 @@ def smoke_din(seed: int = 0, device="cuda") -> dict:
 
 def smoke(arch_id: str, seed: int = 0, device="cuda") -> dict:
     fam = reg.arch(arch_id).FAMILY
+    if fam == "lm":
+        return smoke_lm(arch_id, seed, device)
     if fam == "gnn":
         return smoke_gnn(arch_id, seed, device)
-    return smoke_din(seed, device)
+    if fam == "recsys":
+        return smoke_din(seed, device)
+    raise ValueError(f"no smoke for family {fam} (sssp has its own tests)")

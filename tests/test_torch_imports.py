@@ -63,7 +63,20 @@ SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.configs.dimenet",
                  "repro_torch.configs.equiformer_v2",
                  "repro_torch.configs.graphsage_reddit",
-                 "repro_torch.configs.meshgraphnet")
+                 "repro_torch.configs.meshgraphnet",
+                 "repro_torch.configs.sssp_del",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.moonshot_v1_16b_a3b",
+                 "repro_torch.configs.minicpm3_4b",
+                 "repro_torch.configs.mistral_large_123b",
+                 "repro_torch.configs.qwen3_14b",
+                 "repro_torch.models.layers", "repro_torch.models.flash",
+                 "repro_torch.models.mla", "repro_torch.models.moe",
+                 "repro_torch.models.sharding",
+                 "repro_torch.models.transformer",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.train.compression",
+                 "repro_torch.launch.train")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -90,7 +103,8 @@ def _imported_modules(path: Path) -> set[str]:
                             ROOT / "examples" / "torch_streaming_sssp.py",
                             ROOT / "examples"
                             / "torch_sharded_streaming_sssp.py",
-                            ROOT / "examples" / "torch_serve_din.py"],
+                            ROOT / "examples" / "torch_serve_din.py",
+                            ROOT / "examples" / "torch_train_lm.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_jax_or_repro(path):
     bad = {m for m in _imported_modules(path)
