@@ -192,6 +192,23 @@ Phases (any failure raises and exits non-zero):
      uninterrupted run (LAUNCH_TOL); (e) the port's flash forward at
      (b)'s qwen3 prefill shape beside ``F.scaled_dot_product_attention``
      (printed only);
+  17. the tools (no kernel: the programs the registry builds reach no
+     ``pl.pallas_call``): (a) ``repro_torch.launch.dryrun.main(["--all",
+     "--mesh", "both", ...])`` on ``meta``, its traces in DRYRUN_JOBS
+     worker processes: every cell ``ok`` or ``SKIP``, one line a cell,
+     the time; (b) the dry run held against
+     the card on a one-partition (1, 1) mesh on cuda:0, for every cell
+     whose own dry-run peak fits in CARD_SHARE of the card and whose
+     inputs the registry fills (``Program.fill``: the GNNs at
+     full_graph_sm and molecule, DIN train_batch / serve_p99 /
+     serve_bulk, the four SSSP cells on seeded R-MAT pools; the rest
+     printed with the reason): the argument bytes predicted from meta
+     equal to the filled arguments' bytes, the fastest of CARD_REPEATS
+     timed runs after a warm one (CUDA events) at or above the trace's
+     ``bound_s`` (SSSP: the meta trace replays the warm run's host reads,
+     so it runs the epoch's rounds), the measured peak above the
+     arguments beside the predicted ``temp_bytes`` and the roofline share
+     ``bound_s / measured`` (printed, not held);
   11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
      with a ``lanes`` record of their lane forms; K1-K3 with
@@ -199,7 +216,7 @@ Phases (any failure raises and exits non-zero):
      ``sharded_launches``, its count in phase 13's full-width leg, a
      ``sharded`` record, and a ``sharded_lanes`` record of phase 14), and
      as the last line ``{"ok": true, "device": {...}}``.  Phases run in
-     the order 1-6, 8-10, 12, 13, 14, 15, 16, 7.
+     the order 1-6, 8-10, 12, 13, 14, 15, 16, 17, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -208,6 +225,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3342,6 +3360,153 @@ def lm_path(torch) -> dict:
     return rec
 
 
+# ------------------ phase 17: the dry run, and the dry run against the card --
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_JOBS = 8          # worker processes of the dry run: the host's cores
+CARD_SHARE = 0.8         # a cell runs on the card if its dry-run peak fits
+CARD_REPEATS = 3         # timed runs after a warm one; the fastest is held
+
+
+def dryrun_all() -> dict:
+    """Phase 17(a): the dry run of every cell on both production meshes,
+    on ``meta`` (one line a cell): every cell ok or SKIP.  Returns the
+    single mesh's records by (arch, shape)."""
+    import shutil
+    from repro_torch.configs import registry as reg
+    from repro_torch.launch import dryrun
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--mesh", "both", "--out", str(DRYRUN_OUT),
+                      "--jobs", str(DRYRUN_JOBS)])
+    cells = [c for c in reg.all_cells() if not c.skip]
+    recs, bad = {}, []
+    for mesh in dryrun.MESHES:
+        for c in cells:
+            path = DRYRUN_OUT / mesh / f"{c.arch}__{c.shape}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            if not (rec.get("ok") or rec.get("skipped")):
+                bad.append(f"{mesh} {c.arch} {c.shape}: "
+                           f"{rec.get('error', 'no record')[-2000:]}")
+            if mesh == "single":
+                recs[(c.arch, c.shape)] = rec
+    if rc != 0 or bad:
+        raise AssertionError(f"[17a] dry run failed (exit {rc}):\n"
+                             + "\n".join(bad))
+    print(f"[17a] {2 * len(cells)} records ok in "
+          f"{time.perf_counter() - t0:.1f} s ({DRYRUN_JOBS} workers)")
+    return recs
+
+
+def card_cell(torch, cell, prog, meta_mesh) -> dict:
+    """One cell on the card against its dry run on a meta (1, 1) mesh."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report, trace_analysis as ta
+    t0 = time.perf_counter()
+    args = prog.fill(SEED)
+    real = sum(ta.storages(args).values())
+    fill_s = time.perf_counter() - t0
+    sssp = prog.exchange is not None
+    torch.cuda.synchronize()
+    if sssp:      # the warm run, with its host reads kept for the trace
+        res, reads = ta.record_reads(prog.fn, *args)
+    else:
+        res, reads = prog.fn(*args), None
+    torch.cuda.synchronize()
+    del res
+    ms, above, rounds = [], [], None
+    for _ in range(CARD_REPEATS):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = prog.fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        above.append(torch.cuda.max_memory_allocated() - base)
+        if sssp:
+            rounds = res[2]
+        del res
+    mprog = reg.build_program(cell.arch, cell.shape, meta_mesh)
+    traced = dryrun.trace_program(mprog, answers=reads)
+    mem = dryrun.memory_record(mprog, traced)
+    rf = report.roofline_from_trace(traced.cost, 1)
+    label = f"[17b] {cell.arch} {cell.shape}"
+    if mem["argument_bytes"] != real:
+        raise AssertionError(f"{label}: predicted argument bytes "
+                             f"{mem['argument_bytes']} != filled {real}")
+    if sssp and traced.outputs[2] != rounds:
+        raise AssertionError(f"{label}: the trace ran {traced.outputs[2]} "
+                             f"rounds, the card {rounds}")
+    best = min(ms) / 1e3
+    if best < rf.bound_s:
+        raise AssertionError(f"{label}: the card took {best:.6g} s under "
+                             f"the bound {rf.bound_s:.6g} s: the count is "
+                             f"wrong")
+    rec = {"arch": cell.arch, "shape": cell.shape, "bound_s": rf.bound_s,
+           "dominant": rf.dominant, "compute_s": rf.compute_s,
+           "memory_s": rf.memory_s, "measured_s": best,
+           "ms": ms, "share": rf.bound_s / best,
+           "argument_bytes": real, "temp_bytes": mem["temp_bytes"],
+           "peak_above_args": max(above),
+           "predicted_peak_gb": mem["peak_per_device_gb"],
+           "rounds": rounds, "fill_s": fill_s,
+           "seconds": time.perf_counter() - t0}
+    print(f"{label}: bound {rf.bound_s * 1e3:.4f} ms ({rf.dominant}; "
+          f"compute {rf.compute_s * 1e3:.4f}, memory "
+          f"{rf.memory_s * 1e3:.4f}), measured {best * 1e3:.4f} ms "
+          f"({', '.join(f'{x:.4f}' for x in ms)}), roofline share "
+          f"{rec['share']:.2%}; arguments {real} bytes = predicted; "
+          f"peak above the arguments {max(above) / 2**30:.3f} GiB against "
+          f"predicted temp {mem['temp_bytes'] / 2**30:.3f} GiB"
+          + (f"; {rounds} rounds" if sssp else "")
+          + f"; fill {fill_s:.1f} s, cell {rec['seconds']:.1f} s")
+    return rec
+
+
+def dryrun_on_card(torch, records) -> list:
+    """Phase 17(b) (module docstring)."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.launch.mesh import make_mesh
+    cap = torch.cuda.get_device_properties(0).total_memory
+    axes = ("data", "model")
+    meta_mesh = make_mesh((1, 1), axes, devices=["meta"])
+    card = make_mesh((1, 1), axes, devices=[torch.device("cuda", 0)])
+    out = []
+    for c in reg.all_cells():
+        if c.skip:
+            continue
+        peak = records[(c.arch, c.shape)]["trace_cost"]["peak_live_bytes"]
+        label = f"[17b] {c.arch} {c.shape}"
+        if peak > CARD_SHARE * cap:
+            print(f"{label}: left out: its dry-run peak on one device "
+                  f"{peak / 2**30:.1f} GiB > {CARD_SHARE} x "
+                  f"{cap / 2**30:.1f} GiB")
+            continue
+        prog = reg.build_program(c.arch, c.shape, card)
+        if prog.fill is None:
+            print(f"{label}: left out: the registry has no seeded fill of "
+                  f"its inputs at this size (registry._GNN_FILLS)")
+            continue
+        torch.cuda.empty_cache()
+        out.append(card_cell(torch, c, prog, meta_mesh))
+        del prog
+    torch.cuda.empty_cache()
+    return out
+
+
+def tools_path(torch) -> dict:
+    """Phase 17: the dry run (a) and the dry run against the card (b)."""
+    t0 = time.perf_counter()
+    records = dryrun_all()
+    cells = dryrun_on_card(torch, records)
+    rec = {"cells": cells, "seconds": time.perf_counter() - t0}
+    print(f"[17] summary {json.dumps(rec)}")
+    print(f"[17] {card_line()}; phase 17 in {rec['seconds']:.1f} s")
+    return rec
+
+
 # ------------------------------------------ phase 7: the K4 and K5 paths --
 DIN_ITEMS, DIN_DIM, DIN_SLOTS = 10 * 1024 * 1024, 18, 100   # configs/din.py
 
@@ -3536,7 +3701,6 @@ def main() -> int:
                 if "registers" in ln]
         print(f"[1] {b.path.name}: nvcc {b.seconds:.2f} s; ptxas {regs}")
     print(f"[1] all kernels built in {time.perf_counter() - t0:.2f} s")
-
     # ---- 2. kernels vs plain versions at edge cases
     kernel_edge_cases(torch)
 
@@ -3581,6 +3745,9 @@ def main() -> int:
 
     # ---- 16. the LM substrate at published widths (no kernel)
     lm_path(torch)
+
+    # ---- 17. the dry run, and the dry run against the card (no kernel)
+    tools_path(torch)
 
     # ---- 7. the neighbour-aggregation and embedding-bag entry points
     kernels.extend(aggregation_path(torch))

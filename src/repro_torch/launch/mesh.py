@@ -23,7 +23,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["Mesh", "graph_axes", "make_mesh", "visible_devices"]
+__all__ = ["Mesh", "graph_axes", "make_mesh", "make_production_mesh",
+           "visible_devices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +90,12 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
 def graph_axes(mesh: Mesh) -> tuple[str, ...]:
     """The SSSP engine flattens every mesh axis into one vertex partition."""
     return tuple(mesh.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes, every partition on ``meta``
+    (shapes only, for the dry run).  Single pod: (data=16, model=16) = 256
+    partitions; multi-pod: (pod=2, data=16, model=16) = 512."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=["meta"] * math.prod(shape))

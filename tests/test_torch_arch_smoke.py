@@ -6,8 +6,8 @@ coefficient tables too; the five LM configs); the port's inits' shapes
 against ``jax.eval_shape`` of the reference's, at REDUCED and at full
 CONFIG (on the ``meta`` device: nothing is drawn); the shape tables, the
 cells (``all_cells``), the padded batches' shapes and dtypes and the
-analytic FLOP counts; and the ``ValueError`` for what the last slice
-brings (``build_program``, 13c).
+analytic FLOP counts; and ``build_program``'s ``meta`` for three archs
+(tests/test_torch_registry_programs.py holds every cell).
 All exact: these are integers, shapes and host numpy."""
 import dataclasses
 
@@ -199,11 +199,12 @@ def test_data_batches_fill_the_padded_shapes():
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "olmoe-1b-7b", "sssp-del"])
 def test_not_yet_ported_archs_raise(arch):
-    """The archs that slice 13b brought now smoke as the reference's
+    """The archs that slice 13b brought smoke as the reference's
     (tests/test_arch_smoke.py::test_smoke: finite metrics, loss > 0, the
     reference's metric keys plus the decode check); the SSSP family has
-    no smoke in either package.  What is still not ported raises naming
-    its slice: ``build_program`` (13c)."""
+    no smoke in either package and raises in both.  ``build_program``
+    (13c, once the part that raised here) now returns a ``Program`` whose
+    ``meta`` is the reference's (the name is kept from when it raised)."""
     assert reg.arch(arch).FAMILY == jreg.ARCHES[arch].FAMILY
     if arch == "sssp-del":
         with pytest.raises(ValueError, match="no smoke for family sssp"):
@@ -216,9 +217,14 @@ def test_not_yet_ported_archs_raise(arch):
             assert np.isfinite(v), f"{arch}:{k} = {v}"
         assert metrics["loss"] > 0.0 and metrics["decode_finite"] == 1.0
         assert set(metrics) == set(jsmoke.smoke_lm(arch, seed=0))
-    with pytest.raises(ValueError, match="13c"):
-        reg.build_program(arch, "train_4k" if arch != "sssp-del"
-                          else "relax_rmat24")
+    from repro.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import make_mesh
+    shape = "train_4k" if arch != "sssp-del" else "relax_rmat24"
+    prog = reg.build_program(arch, shape, make_mesh(
+        (1, 1), ("data", "model"), devices=["meta"]))
+    assert isinstance(prog, reg.Program)
+    assert prog.meta == jreg.build_program(
+        arch, shape, make_test_mesh((1, 1), ("data", "model"))).meta
 
 
 def test_smoke_defaults_to_the_card():

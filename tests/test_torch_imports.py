@@ -76,7 +76,11 @@ SLICE_MODULES = ("repro_torch.core.backends.sliced",
                  "repro_torch.models.transformer",
                  "repro_torch.train.checkpoint",
                  "repro_torch.train.compression",
-                 "repro_torch.launch.train")
+                 "repro_torch.launch.train",
+                 "repro_torch.launch.dryrun", "repro_torch.roofline",
+                 "repro_torch.roofline.trace_analysis",
+                 "repro_torch.roofline.report",
+                 "repro_torch.roofline.tables", "repro_torch.testing")
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -104,7 +108,8 @@ def _imported_modules(path: Path) -> set[str]:
                             ROOT / "examples"
                             / "torch_sharded_streaming_sssp.py",
                             ROOT / "examples" / "torch_serve_din.py",
-                            ROOT / "examples" / "torch_train_lm.py"],
+                            ROOT / "examples" / "torch_train_lm.py",
+                            ROOT / "examples" / "torch_quickstart.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_jax_or_repro(path):
     bad = {m for m in _imported_modules(path)
