@@ -26,8 +26,9 @@ Phases (any failure raises and exits non-zero):
      agg, f32 and bf16; K5: all-padded bags, L = 1, L > 32, L = 37, B = 1,
      padding inside and after a bag, DIN's serve_p99 widths, repeated
      indices, a live index past the end, f32 and bf16); then K1 (both
-     variants, views at a cell offset) and K2 lane forms at S = 1, 4, 8
-     against the lane plain version and S single-lane kernel calls;
+     variants, views at a cell offset) and K2 lane forms at S = 1, 4, 5,
+     8, 16 (one lane group and two) against the lane plain version and S
+     single-lane kernel calls, and K1's on a caller-made lane-minor copy;
   3. the dense-ELL path: ``make_engine(relax_backend="ellpack",
      batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
      at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
@@ -84,7 +85,10 @@ Phases (any failure raises and exits non-zero):
      of highest in-degree (K1's and K2's lane forms, counted apart), lane
      0 equal to phases 3's / 4's run at every query, every lane through
      Dijkstra at the end; S x events / wall; each lane form timed at its
-     path's final shape beside one lane alone and its bound;
+     path's final shape beside one lane alone (the ratio to S single-lane
+     calls) and its bound (the share), and the lane-minor interleave
+     (``relax.lane_minor``, the same pass K2 runs inside its launch)
+     timed apart;
   10. at 2^16 (the ER recipe's first quarter of events): 4 lanes on
      segment, ellpack, sliced unfused, auto and the sparse frontier, under
      rounds and buckets, each lane equal to a single-source engine at
@@ -132,7 +136,9 @@ Phases (any failure raises and exits non-zero):
      0 to phase 13's, Dijkstra for every lane; source-events/s beside phase
      9's; K1's lane form on each partition's block against its plain
      version (variant per partition) and timed three ways, one block and
-     all eight, with its bound (``relax.wave_bytes(lanes=4)``); the
+     all eight, on one lane-minor copy of the offers as the path shares
+     it (the interleave timed apart, the ratio to S single-lane calls),
+     with its bound (``relax.wave_bytes(lanes=4)``); the
      ReMo-from-scratch baseline at full width on the same cut, queried at
      its 7th, 14th and 21st query points (dist equal to the sharded lane
      0's within check_tree's tolerance, Dijkstra; latency p50 beside the
@@ -765,31 +771,41 @@ def lanes_check(torch, name, fn, lane_args, one_args, plain) -> float:
     return err
 
 
+LANE_CASES = (1, 4, 5, 8, 16)   # phase 2: one lane group and two
+
+
 def lane_edge_cases(torch, k2_cases) -> None:
     """Phase 2 for the lane forms: K1 (both variants; views at a cell
-    offset) and K2 at S = 1, 4, 8 against the lane plain version and S
-    single-lane kernel calls, bit for bit, on phase 2's edge cases."""
+    offset) and K2 at S in LANE_CASES against the lane plain version and S
+    single-lane kernel calls, bit for bit, on phase 2's edge cases; K1 on
+    a caller-made lane-minor copy (``offers_minor=``), which equals its
+    plain version."""
     from repro_torch.kernels.relax import fused as k2
     from repro_torch.kernels.relax import relax as k1
-    from repro_torch.kernels.relax.ref import ellpack_relax_ref
+    from repro_torch.kernels.relax.ref import (ellpack_relax_ref,
+                                               lane_minor_ref)
     cases = [(50, 8, 1), (700, 130, 4), (300, 256, 5), (5000, 4097, 32),
              (70000, 65536, 33), (900, 70, 128), (900, 33, 130),
              (1 << 20, 1 << 20, 32)]
     taken, n1, n2 = set(), 0, 0
-    for lanes in (1, 4, 8):
+    for lanes in LANE_CASES:
         blocks = [k1_case(torch, i, n, r, k, True, True)
                   for i, (n, r, k) in enumerate(cases)]
         blocks += [k1_view(torch, k1_case(torch, 50 + i, 500, 300, k, True,
                                           True), off)
                    for i, (off, k) in enumerate([(3, 32), (1, 4), (2, 36)])]
         for offers, idx, w in blocks:
-            if lanes == 8 and idx.shape[0] == 1 << 20:
-                continue       # the plain version's (8, R, K) candidates
+            if lanes >= 8 and idx.shape[0] == 1 << 20:
+                continue       # the plain version's (S, R, K) candidates
             taken.add(k1.variant(idx, w))
             lo = lanes_of(torch, offers, lanes, n1)
+            plain = ellpack_relax_ref(lo, idx, w)
             lanes_check(torch, "K1", k1.ellpack_relax, (lo, idx, w),
-                        lambda t: (lo[t].contiguous(), idx, w),
-                        ellpack_relax_ref(lo, idx, w))
+                        lambda t: (lo[t].contiguous(), idx, w), plain)
+            minor = k1.lane_minor(lo)
+            assert torch.equal(minor, lane_minor_ref(lo)), "lane_minor"
+            compare(torch, "K1 lanes on a caller-made copy",
+                    k1.ellpack_relax(lo, idx, w, offers_minor=minor), plain)
             n1 += 1
         for i, (_, c) in enumerate(k2_cases):
             (dist, active), lay = k2_case(torch, 100 + i, **c)
@@ -803,11 +819,11 @@ def lane_edge_cases(torch, k2_cases) -> None:
                         k2_plain(d, a, lay))
             n2 += 1
     assert taken == {"vector", "scalar"}, taken
-    print(f"[2] K1 and K2 lane forms at S = 1, 4, 8: bit-identical to the "
-          f"lane plain version and to S single-lane kernel calls on {n1} "
-          f"K1 cases (both variants, views at a cell offset, an all-+inf "
-          f"lane) and {n2} K2 cases (an all-+inf lane, a lane with no "
-          f"active source)")
+    print(f"[2] K1 and K2 lane forms at S = {LANE_CASES}: bit-identical to "
+          f"the lane plain version and to S single-lane kernel calls on "
+          f"{n1} K1 cases (both variants, views at a cell offset, an "
+          f"all-+inf lane; each also on a caller-made lane-minor copy) and "
+          f"{n2} K2 cases (an all-+inf lane, a lane with no active source)")
 
 
 def gather_edge_cases(torch) -> None:
@@ -1402,24 +1418,42 @@ def buckets_legs(torch, ctx) -> None:
         del eng, res, q
 
 
-def lane_times(torch, name, fn, lane_args, single_args, plain, nbytes,
-               ops, launches) -> dict:
+def lane_times(torch, name, fn, lane_args, single_args, plain_fn, nbytes,
+               ops, launches, interleave) -> dict:
     """A lane form at its path's final shape: checked against its lane
-    plain version and S single-lane calls, timed three ways beside the
-    single-lane call's device time, with its bound."""
+    plain version (``plain_fn()``, timed once after a warm call: seconds a
+    call for K2's) and S single-lane calls, timed three ways beside the
+    single-lane call's device time (the ratio to S of them), with its
+    bound (the share); ``interleave()``, its lane-minor copy (inside the
+    lane form's time), timed apart."""
     lanes = lane_args[0].shape[0]
+    plain = plain_fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    plain_fn()
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     err = lanes_check(torch, name, fn, lane_args, single_args, plain)
     times = kernel_times(torch, lambda: fn(*lane_args), 20)
     one_ms = device_ms(torch, lambda: fn(*single_args(0)))
+    inter_ms = device_ms(torch, interleave)
     bound_ms, bound_by = bound(nbytes, ops)
+    ratio = times["device_ms"] / (lanes * one_ms)
+    share = bound_ms / times["device_ms"]
     print(f"[9] {name} lane form at S={lanes}: {times_text(times)}; one "
-          f"lane alone {one_ms:.4f} ms device (x S = {lanes * one_ms:.4f}); "
-          f"bound {bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at 3.35 TB/s "
-          f"(the layout once, the per-lane vectors S times); lane-form "
-          f"launches on the path {launches}")
+          f"lane alone {one_ms:.4f} ms device (x S = {lanes * one_ms:.4f}; "
+          f"ratio {ratio:.3f} of S single-lane calls); lane-minor "
+          f"interleave alone {inter_ms:.4f} ms device (inside the lane "
+          f"form's time); bound {bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB "
+          f"at 3.35 TB/s (the layout once, the per-lane vectors S times), "
+          f"{100 * share:.1f} % of it; the lane plain version "
+          f"{plain_ms:.4f} ms; lane-form launches on the path {launches}")
     return {"lanes": lanes, "launches": launches, "max_abs_err": err,
-            **times, "single_lane_device_ms": one_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            **times, "single_lane_device_ms": one_ms,
+            "ratio_to_single_lanes": ratio, "interleave_device_ms": inter_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": share}
 
 
 def lanes_legs(torch, ctx) -> tuple[dict, dict]:
@@ -1442,11 +1476,13 @@ def lanes_legs(torch, ctx) -> tuple[dict, dict]:
         eng = engine(n, c["e"], sources[0], sources=sources, **knobs)
         for fn in (k1.ellpack_relax, k2.fused_sliced_relax):
             fn.launches = fn.lane_launches = 0
+        k1.lane_minor.launches = 0
         t0 = time.perf_counter()
         res = eng.ingest_log(log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         lane_launches = kernel.lane_launches
+        interleaves = k1.lane_minor.launches
         assert lane_launches > 0 and kernel.launches == lane_launches, \
             f"[9] {label}: {kernel.launches} launches, {lane_launches} lane"
         assert len(res) == len(want)
@@ -1464,7 +1500,9 @@ def lanes_legs(torch, ctx) -> tuple[dict, dict]:
               f"topology events / wall; one source to the same query: "
               f"{n_topo / r_wall:.0f} in {r_wall:.2f} s), waves "
               f"per lane {eng.n_rounds.tolist()}, lane-form launches "
-              f"{lane_launches}; lane 0 bit-identical to the single-source "
+              f"{lane_launches} (K1's lane-minor interleaves apart from "
+              f"K2's own: {interleaves}); lane 0 bit-identical to the "
+              f"single-source "
               f"run at all {len(res)} queries; every lane passes Dijkstra "
               f"(reached {reached})")
         if key == "er":   # phase 14's sharded lanes are held against them
@@ -1477,10 +1515,12 @@ def lanes_legs(torch, ctx) -> tuple[dict, dict]:
             live = int(torch.isfinite(w).sum())
             records.append(lane_times(
                 torch, "K1", k1.ellpack_relax, (dist, idx, w),
-                lambda t: (dist[t], idx, w), ellpack_relax_ref(dist, idx, w),
+                lambda t: (dist[t], idx, w),
+                lambda: ellpack_relax_ref(dist, idx, w),
                 k1.wave_bytes(n, idx.shape[0], idx.shape[1], live,
                               lanes=len(sources)),
-                2 * live * len(sources), lane_launches))
+                2 * live * len(sources), lane_launches,
+                lambda: k1.lane_minor(dist)))
         else:
             st = eng.backend.state
             act = torch.ones_like(dist, dtype=torch.bool)
@@ -1488,10 +1528,12 @@ def lanes_legs(torch, ctx) -> tuple[dict, dict]:
             live_c = int(torch.isfinite(st.ow).sum())
             records.append(lane_times(
                 torch, "K2", k2.fused_sliced_relax, (dist, act, st),
-                lambda t: (dist[t], act[t], st), k2_plain(dist, act, st),
+                lambda t: (dist[t], act[t], st),
+                lambda: k2_plain(dist, act, st),
                 k2.wave_bytes(n, st.flat_w.numel(), live_l, st.ow.numel(),
                               live_c, st.table.rows, lanes=len(sources)),
-                2 * (live_l + live_c) * len(sources), lane_launches))
+                2 * (live_l + live_c) * len(sources), lane_launches,
+                lambda: k1.lane_minor(dist, act)))
         del eng, dist
     return records[0], records[1]
 
@@ -2133,7 +2175,7 @@ def sharded_lanes_full_width(torch, ctx) -> tuple[dict, list]:
                  mesh=card_mesh(torch))
     waves = count_waves(eng)
     fn = k1.ellpack_relax
-    fn.launches = fn.lane_launches = 0
+    fn.launches = fn.lane_launches = k1.lane_minor.launches = 0
     t0 = time.perf_counter()
     res = eng.ingest_log(log)
     torch.cuda.synchronize()
@@ -2142,6 +2184,9 @@ def sharded_lanes_full_width(torch, ctx) -> tuple[dict, list]:
     assert lane_launches > 0 and launches == lane_launches, \
         f"[14] K1 launches {launches}, lane form {lane_launches}"
     assert launches == SHARDS * len(waves), (launches, len(waves))
+    # one lane-minor copy a mesh wave, shared by the partitions' blocks
+    assert k1.lane_minor.launches == len(waves), \
+        f"[14] {k1.lane_minor.launches} interleaves, {len(waves)} waves"
     lane_results_equal("[14] sharded lanes vs phase 9", res, lanes["results"])
     for i, (a, b) in enumerate(zip(res, c["sharded"])):
         assert np.array_equal(a.dist[0], b.dist) and np.array_equal(
@@ -2160,7 +2205,8 @@ def sharded_lanes_full_width(torch, ctx) -> tuple[dict, list]:
           f"{p50_ms(res):.3f} ms, waves per lane {eng.n_rounds.tolist()}, "
           f"mesh waves {len(waves)}, K1 lane-form launches {launches} "
           f"({launches / len(waves):.2f} a mesh wave, none a marking "
-          f"round); every lane equal to phase 9 at all {len(res)} queries "
+          f"round) on one lane-minor interleave a mesh wave; every lane "
+          f"equal to phase 9 at all {len(res)} queries "
           f"(dist, parent, rounds, messages), lane 0 to phase 13; every "
           f"lane passes Dijkstra (reached {reached})")
     lane0 = [res[q - 1].dist[0] for q in BASELINE_QUERIES]
@@ -2169,33 +2215,60 @@ def sharded_lanes_full_width(torch, ctx) -> tuple[dict, list]:
     offers = eng.ds.all_gather(eng.dist)[0]
     states = eng.bk.states
     variants = [k1.variant(st.nbr_idx, st.nbr_w) for st in states]
+    # the path's shape: one lane-minor copy a mesh wave, every partition's
+    # block relaxed on it
+    minor = k1.lane_minor(offers)
     err = max(compare(torch, f"K1 lanes, partition {p}",
-                      k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w),
+                      k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w,
+                                       offers_minor=minor),
                       ellpack_relax_ref(offers, st.nbr_idx, st.nbr_w))
               for p, st in enumerate(states))
     st0 = states[0]
-    times = kernel_times(
-        torch, lambda: k1.ellpack_relax(offers, st0.nbr_idx, st0.nbr_w), 50)
-    every = kernel_times(torch, lambda: [
-        k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w) for st in states], 20)
+    one = offers[0].contiguous()
+    times = kernel_times(torch, lambda: k1.ellpack_relax(
+        offers, st0.nbr_idx, st0.nbr_w, offers_minor=minor), 50)
+    one_ms = device_ms(torch, lambda: k1.ellpack_relax(one, st0.nbr_idx,
+                                                       st0.nbr_w))
+
+    def all_blocks():
+        m = k1.lane_minor(offers)
+        return [k1.ellpack_relax(offers, st.nbr_idx, st.nbr_w,
+                                 offers_minor=m) for st in states]
+
+    every = kernel_times(torch, all_blocks, 20)
+    one_every = device_ms(torch, lambda: [
+        k1.ellpack_relax(one, st.nbr_idx, st.nbr_w) for st in states])
+    inter_ms = device_ms(torch, lambda: k1.lane_minor(offers))
     plain_ms = cuda_ms(torch, lambda: ellpack_relax_ref(
         offers, st0.nbr_idx, st0.nbr_w), 10)
     rows, k = st0.nbr_idx.shape
     live_cells = int(torch.isfinite(st0.nbr_w).sum())
     nbytes = k1.wave_bytes(offers.shape[-1], rows, k, live_cells, lanes=S)
     bound_ms, bound_by = bound(nbytes, 2 * live_cells * S)
+    ratio = times["device_ms"] / (S * one_ms)
+    ratio_all = every["device_ms"] / (S * one_every)
     print(f"[14] K1's lane form on each partition's block ({rows} x {k}, "
           f"offers {tuple(offers.shape)}) bit-identical to its plain "
           f"version; variants {variants}; partition 0 ({live_cells} live "
-          f"cells): {times_text(times)} (plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at 3.35 TB/s); all "
-          f"{SHARDS} blocks: {times_text(every)}")
+          f"cells) on the shared lane-minor copy: {times_text(times)} "
+          f"(plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+          f"{100 * bound_ms / times['device_ms']:.1f} % of it; one lane "
+          f"alone {one_ms:.4f} ms, ratio {ratio:.3f} of S single-lane "
+          f"calls); the interleave {inter_ms:.4f} ms device, once a mesh "
+          f"wave; all {SHARDS} blocks with their copy: {times_text(every)} "
+          f"(one lane alone {one_every:.4f} ms, ratio {ratio_all:.3f})")
     record = {"lanes": S, "launches": launches, "mesh_waves": len(waves),
               "launches_per_wave": launches / len(waves),
               "variants": variants, "max_abs_err": err, **times,
               "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": None,
-              "all_partitions": every, "source_events_per_s": rate,
+              "single_lane_device_ms": one_ms,
+              "ratio_to_single_lanes": ratio,
+              "interleave_device_ms": inter_ms, "all_partitions": every,
+              "all_partitions_single_lane_device_ms": one_every,
+              "all_partitions_ratio": ratio_all,
+              "source_events_per_s": rate,
               "phase9_source_events_per_s": rate9, "query_p50_ms": p50}
     del eng, offers, states, st0
     return record, lane0
@@ -2371,9 +2444,9 @@ def sharded_lanes_cross_checks(torch) -> dict:
     seen = set()
     real_k1 = sliced_mod.ellpack_relax
 
-    def k1_seen(offers, idx, w):
+    def k1_seen(offers, idx, w, **kw):   # kw: the shared lane-minor copy
         seen.add(k1.variant(idx, w))
-        return real_k1(offers, idx, w)
+        return real_k1(offers, idx, w, **kw)
 
     rn, re_, rsources, rlog = stream(16, "rmat")
     rlog = rlog[:len(rlog) // SHARD_CHECK_FRACTION]

@@ -48,7 +48,7 @@ from repro_torch.core.state import INF, SSSPState
 from repro_torch.graphs import csr as csr_mod
 from repro_torch.kernels.relax.ops import relax_wave
 from repro_torch.kernels.relax.ref import ellpack_relax_ref
-from repro_torch.kernels.relax.relax import ellpack_relax
+from repro_torch.kernels.relax.relax import LaneMinorOnce, ellpack_relax
 
 _next_pow2 = csr_mod.next_pow2
 
@@ -418,6 +418,7 @@ class ShardedEllpack(ShardedBackend):
 
     def __init__(self, cfg, ds, allocs, *, use_kernel=False):
         super().__init__(cfg, ds, allocs, use_kernel=use_kernel)
+        self._minor = LaneMinorOnce()
         self.planners = self._mk_planners()
         self.rows_pp = self.planners[0].rows
         self.states = [EllState.from_host(*pl.empty_host(), dev)
@@ -473,12 +474,15 @@ class ShardedEllpack(ShardedBackend):
     def shard_wave(self, p, pool):
         """K1 (or its plain version) on partition ``p``'s block: one launch
         per partition and wave, for every lane of ``[S, N]`` offers (K1's
-        lane form)."""
+        lane form, on one lane-minor copy of the offers a device and mesh
+        wave)."""
         st, npp = self.states[p], self.npp
         fn = ellpack_relax if self.use_kernel else ellpack_relax_ref
+        minor = self._minor if self.use_kernel else (lambda offers: None)
 
         def wave(offers):
-            best, arg = fn(offers, st.nbr_idx, st.nbr_w)
+            best, arg = fn(offers, st.nbr_idx, st.nbr_w,
+                           offers_minor=minor(offers))
             return best[..., :npp], arg[..., :npp]
 
         return wave

@@ -52,7 +52,8 @@ from repro_torch.graphs import csr as csr_mod
 from repro_torch.kernels.relax.fused import ChunkTable, fused_sliced_relax
 from repro_torch.kernels.relax.ref import (combine_lanes, ellpack_relax_ref,
                                            overflow_min, sliced_gather_min)
-from repro_torch.kernels.relax.relax import ellpack_relax
+from repro_torch.kernels.relax.relax import (LaneMinorOnce, ellpack_relax,
+                                             lane_minor)
 
 _next_pow2 = csr_mod.next_pow2
 
@@ -226,10 +227,15 @@ def sliced_relax_wave(dist: torch.Tensor, parent: torch.Tensor,
         comb, new_parent = comb[..., :n], new_parent[..., :n]
     else:
         offers = dist if frontier is None else torch.where(frontier, dist, INF)
+        # K1's lane form reads the lanes' offers lane-minor: one copy a
+        # wave for every width run
+        minor = (lane_minor(offers) if use_kernel and offers.dim() == 2
+                 else None)
         best, arg = sliced_gather_min(
             offers, st.flat_idx, st.flat_w, widths=st.widths,
             slice_rows=st.slice_rows,
-            relax=ellpack_relax if use_kernel else ellpack_relax_ref)
+            relax=ellpack_relax if use_kernel else ellpack_relax_ref,
+            offers_minor=minor)
         obest, oarg = overflow_min(offers, st.osrc, st.odst, st.ow,
                                    num_vertices)
         comb, new_parent = combine_lanes(best[..., :n], arg[..., :n], obest,
@@ -556,6 +562,7 @@ class ShardedSliced(ShardedBackend):
 
     def __init__(self, cfg, ds, allocs, *, use_kernel=False):
         super().__init__(cfg, ds, allocs, use_kernel=use_kernel)
+        self._minor = LaneMinorOnce()
         self.planners = self._mk_planners()
         self.states = [
             SlicedEllState.from_host(pl, pl.empty_host(), dev,
@@ -630,15 +637,18 @@ class ShardedSliced(ShardedBackend):
     def shard_wave(self, p, pool):
         """Partition ``p``'s unfused hybrid wave: K1 (or its plain version)
         once per width run of its slices, the overflow lane, the combine;
-        ``[S, N]`` offers take K1's lane form once per width run."""
+        ``[S, N]`` offers take K1's lane form once per width run, on one
+        lane-minor copy of the offers a device and mesh wave."""
         st, npp = self.states[p], self.npp
         orow = st.odst.clamp(0, npp - 1)
         fn = ellpack_relax if self.use_kernel else ellpack_relax_ref
+        minor = self._minor if self.use_kernel else (lambda offers: None)
 
         def wave(offers):
             best, arg = sliced_gather_min(
                 offers, st.flat_idx, st.flat_w, widths=st.widths,
-                slice_rows=st.slice_rows, relax=fn)
+                slice_rows=st.slice_rows, relax=fn,
+                offers_minor=minor(offers))
             obest, oarg = overflow_min(offers, st.osrc, orow, st.ow, npp)
             return combine_lanes(best[..., :npp], arg[..., :npp], obest,
                                  oarg)

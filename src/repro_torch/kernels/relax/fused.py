@@ -9,11 +9,13 @@ arrays: the frontier-masked ELL lane over the flat buffer, the overflow COO
 lane and the lane combine in one call, ``arg = INT_MAX`` where nothing is
 finite.  ``dist`` / ``active`` may be ``[S, N]``, S trees over the one
 layout: one launch serves all S lanes and gives ``[S, R]``, each lane what
-a single-lane call on it gives.  Tensors on the CPU take the plain
-version; tensors on a CUDA device launch the kernel or raise — there is no
-fallback.  ``fused_sliced_relax.launches`` counts kernel launches and
-``.lane_launches`` those of the lane form (plain integers; callers reset
-them to 0 to count one run).
+a single-lane call on it gives; it first interleaves the masked offers
+lane-minor (``ref.lane_minor_ref(dist, active)``) into scratch the wrapper
+allocates beside the keys, so one gather serves up to 8 lanes.  Tensors
+on the CPU take the plain version; tensors on a CUDA device launch the
+kernel or raise — there is no fallback.  ``fused_sliced_relax.launches``
+counts kernel launches and ``.lane_launches`` those of the lane form
+(plain integers; callers reset them to 0 to count one run).
 
 The TPU kernel makes one ``pallas_call`` per distinct-width run and rescans
 the whole overflow segment in each; the CUDA kernel reads the segment once
@@ -36,7 +38,8 @@ import torch
 
 from repro_torch.graphs.csr import slice_offsets, width_runs
 from repro_torch.kernels import build
-from repro_torch.kernels.relax.ref import fused_sliced_relax_ref
+from repro_torch.kernels.relax.ref import (fused_sliced_relax_ref,
+                                           lane_minor_shape)
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_sliced_relax.cu"
 BLOCK_CELLS = 1024   # cells per chunk; the kernel's kChunk
@@ -81,6 +84,7 @@ class ChunkTable:
     slice_rows: int
     rows: int                     # R = len(widths) * slice_rows
     cells: int                    # L, cells of the flat buffer
+    wide: bool                    # a slice wider than a warp (k > 32)
 
     @staticmethod
     def build(widths: tuple[int, ...], slice_rows: int,
@@ -92,7 +96,8 @@ class ChunkTable:
                                 device=device),
             widths=widths, slice_rows=slice_rows,
             rows=len(widths) * slice_rows,
-            cells=int(slice_offsets(widths, slice_rows)[-1]))
+            cells=int(slice_offsets(widths, slice_rows)[-1]),
+            wide=max(widths, default=0) > 32)
 
 
 def slice_run_groups(widths: tuple[int, ...] | list[int],
@@ -152,8 +157,9 @@ def launcher(lanes: bool = False):
     first use and bound once per process."""
     if lanes:
         return build.launcher(SOURCE, "fused_sliced_relax_lanes_launch",
-                              [ctypes.c_void_p] * 11
-                              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3)
+                              [ctypes.c_void_p] * 12
+                              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
+                              + [ctypes.c_longlong] * 2)
     return build.launcher(SOURCE, "fused_sliced_relax_launch",
                           [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3
                           + [ctypes.c_int] * 2)
@@ -214,16 +220,30 @@ def fused_sliced_relax(dist: torch.Tensor, active: torch.Tensor, layout
     arg = torch.empty((*lanes, t.rows), dtype=i32, device=dev)
     if best.numel() == 0:
         return best, arg
-    key = torch.empty(best.shape, dtype=torch.int64, device=dev)
-    ptrs = [x.data_ptr() for x in (dist, active, flat_idx, flat_w, t.blocks,
-                                   osrc, odst, ow, key, best, arg)]
     words = t.blocks.shape[0]
     if lanes:
+        # scratch: the lane-minor masked offers and the lane-minor keys
+        groups, n, w = lane_minor_shape(lanes[0], dist.shape[-1])
+        if lanes[0] == 1:
+            key = torch.empty(t.rows, dtype=torch.int64, device=dev)
+            offers_t = dist
+        else:
+            key = torch.empty((groups, t.rows, w), dtype=torch.int64,
+                              device=dev)
+            offers_t = torch.empty((groups, n, w), dtype=f32, device=dev)
+        ptrs = [x.data_ptr() for x in (dist, active, flat_idx, flat_w,
+                                       t.blocks, osrc, odst, ow, key,
+                                       offers_t, best, arg)]
         build.launch("fused_sliced_relax", launcher(True), dev, *ptrs,
-                     t.rows, t.cells, ow.shape[0], dist.shape[-1],
-                     words // 4, BLOCK_CELLS, lanes[0])
+                     t.rows, t.cells, ow.shape[0], n, words // 4,
+                     BLOCK_CELLS, lanes[0], int(t.wide), key.numel(),
+                     offers_t.numel() if lanes[0] > 1 else 0)
         fused_sliced_relax.lane_launches += 1
     else:
+        key = torch.empty(best.shape, dtype=torch.int64, device=dev)
+        ptrs = [x.data_ptr() for x in (dist, active, flat_idx, flat_w,
+                                       t.blocks, osrc, odst, ow, key, best,
+                                       arg)]
         build.launch("fused_sliced_relax", launcher(), dev, *ptrs,
                      t.rows, t.cells, ow.shape[0], words // 4, BLOCK_CELLS)
     fused_sliced_relax.launches += 1

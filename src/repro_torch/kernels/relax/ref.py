@@ -22,7 +22,11 @@ and the sliced backend's unfused wave imports them.
 K1 and K2's plain versions also take a leading lane axis — ``offers`` /
 ``dist`` / ``active`` (S, N), S trees over the one shared layout — and give
 (S, R), lane for lane what S single-lane calls give: the CPU route of the
-batched engine and the card's oracle for the kernels' lane forms.
+batched engine and the card's oracle for the kernels' lane forms.  The
+lane forms gather their offers lane-minor: ``lane_minor_ref`` is the plain
+version of that interleave (``lane_group`` lanes a group, +inf past the
+last lane), and ``ellpack_relax_ref`` / ``sliced_gather_min`` take such a
+copy through ``offers_minor=`` and read the offers from it.
 
 K3, ``gathered_rows_relax_ref``: the counterpart of
 ``repro.kernels.relax.gather.gathered_rows_relax_ref`` — candidates
@@ -41,8 +45,56 @@ _BIG = 2**31 - 1
 _INF = float("inf")
 
 
+LANE_GROUP = 8   # the most lanes one gather serves
+
+
+def lane_group(lanes: int) -> int:
+    """Lanes a group of the lane-minor layout (W): the smallest power of
+    two >= ``lanes``, at most ``LANE_GROUP``; the kernels' rule
+    (``lane_minor.cuh``)."""
+    return min(LANE_GROUP, 1 << max(0, lanes - 1).bit_length())
+
+
+def lane_minor_shape(lanes: int, n: int) -> tuple[int, int, int]:
+    """(groups, N, W) of the lane-minor copy of (``lanes``, N) offers."""
+    w = lane_group(lanes)
+    return -(-lanes // w), n, w
+
+
+def lane_minor_ref(offers: torch.Tensor, active: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """(S, N) offers lane-minor: out[g, v, j] = offers[g * W + j, v], +inf
+    past the last lane and where ``active`` (if given, (S, N) bool) is
+    False."""
+    s, n = offers.shape
+    g, _, w = lane_minor_shape(s, n)
+    src = offers if active is None else torch.where(active, offers, _INF)
+    out = torch.full((g * w, n), _INF, dtype=offers.dtype,
+                     device=offers.device)
+    out[:s] = src
+    return out.view(g, w, n).transpose(1, 2).contiguous()
+
+
+def _check_minor(offers: torch.Tensor, minor: torch.Tensor) -> None:
+    if offers.dim() != 2 or tuple(minor.shape) != lane_minor_shape(
+            *offers.shape):
+        raise ValueError(
+            f"offers_minor: expected the lane-minor copy "
+            f"{lane_minor_shape(*offers.shape) if offers.dim() == 2 else '?'}"
+            f" of (S, N) offers; got {tuple(minor.shape)} for offers "
+            f"{tuple(offers.shape)}")
+
+
 def ellpack_relax_ref(offers: torch.Tensor, nbr_idx: torch.Tensor,
-                      nbr_w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                      nbr_w: torch.Tensor, *,
+                      offers_minor: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    if offers_minor is not None:
+        # the lanes' offers read from their lane-minor copy
+        _check_minor(offers, offers_minor)
+        g, n, w = offers_minor.shape
+        lanes = offers_minor.transpose(1, 2).reshape(g * w, n)
+        offers = lanes[:offers.shape[0]]
     cand = offers[..., nbr_idx] + nbr_w                    # ([S,] R, K)
     best = cand.amin(dim=-1)
     is_min = cand == best[..., None]
@@ -64,21 +116,24 @@ def sliced_gather_min(offers: torch.Tensor, flat_idx: torch.Tensor,
                       flat_w: torch.Tensor, *, widths: tuple[int, ...],
                       slice_rows: int,
                       relax: Callable[..., tuple[torch.Tensor, torch.Tensor]]
-                      = ellpack_relax_ref
+                      = ellpack_relax_ref,
+                      offers_minor: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ELL lane of one hybrid wave: (best f32[R], arg i32[R]) for R =
     len(widths) * slice_rows rows, arg the smallest minimizing neighbor id
     (-1 where best is +inf, K1's rule).  Each run of equal-width slices is
     one contiguous (rows, k) block of the flat buffer and one ``relax``
     call (K1 or its plain version; the reference splits a run into 256-row
-    tiles, the rows are the same)."""
+    tiles, the rows are the same).  ``offers_minor``, the lane-minor copy
+    of (S, N) offers, made once for the wave, goes to every run's call."""
+    kw = {} if offers_minor is None else {"offers_minor": offers_minor}
     bests, args_ = [], []
     off = 0
     for k, cnt in width_runs(widths):
         rows_g = slice_rows * cnt
         blk = slice(off, off + rows_g * k)
         b, a = relax(offers, flat_idx[blk].view(rows_g, k),
-                     flat_w[blk].view(rows_g, k))
+                     flat_w[blk].view(rows_g, k), **kw)
         bests.append(b)
         args_.append(a)
         off += rows_g * k

@@ -5,11 +5,16 @@ Hopper kernel ``csrc/ellpack_relax.cu``, the port of the Pallas TPU kernel
 ``ellpack_relax(offers, nbr_idx, nbr_w) -> (best f32[R], arg i32[R])``
 computes exactly ``ellpack_relax_ref`` (ref.py).  Its lane form takes
 ``offers`` (S, N) — S trees over the one shared block — and gives (S, R)
-in ONE launch, each lane what a single-lane call on it gives.  Tensors on
-the CPU take the plain version; tensors on a CUDA device launch the kernel
-or raise — there is no fallback.  ``ellpack_relax.launches`` counts kernel
-launches and ``.lane_launches`` those of the lane form (plain integers;
-callers reset them to 0 to count one run).
+in ONE launch, each lane what a single-lane call on it gives.  The kernel
+gathers the lanes' offers lane-minor (``lane_minor``: one load a cell
+for up to 8 lanes); a caller that runs several blocks over the same
+offers (one per width run of a sliced layout, one per partition of a
+mesh) makes that copy once and passes it as ``offers_minor=``, else the
+wrapper makes it.  Tensors on the CPU take the plain versions; tensors on
+a CUDA device launch the kernels or raise — there is no fallback.
+``ellpack_relax.launches`` counts K1 launches, ``.lane_launches`` those of
+the lane form and ``lane_minor.launches`` the interleaves (plain
+integers; callers reset them to 0 to count one run).
 
 The kernel has two variants, chosen by its C launcher: ``variant`` gives
 the rule.  ``wave_bytes`` is the bytes one call must move, its bound.
@@ -23,7 +28,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.relax.ref import ellpack_relax_ref
+from repro_torch.kernels.relax.ref import (ellpack_relax_ref, lane_minor_ref,
+                                           lane_minor_shape)
 
 SOURCE = Path(__file__).parent / "csrc" / "ellpack_relax.cu"
 
@@ -64,6 +70,15 @@ def launcher(lanes: bool = False):
                                                    ctypes.c_int])
 
 
+@functools.cache
+def interleave_launcher():
+    """The lane-minor interleave's C launcher (``lane_minor_launch``, in
+    the kernel's library)."""
+    return build.launcher(SOURCE, "lane_minor_launch",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                   ctypes.c_int])
+
+
 def _check(offers: torch.Tensor, nbr_idx: torch.Tensor,
            nbr_w: torch.Tensor) -> None:
     dev = offers.device
@@ -88,34 +103,115 @@ def _check(offers: torch.Tensor, nbr_idx: torch.Tensor,
         raise ValueError("ellpack_relax: tensors must be contiguous")
 
 
+def lane_minor(offers: torch.Tensor, active: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """(S, N) offers as K1's lane form gathers them: (groups, N, W), W =
+    ``lane_group(S)`` lanes a group, out[g, v, j] = offers[g * W + j, v],
+    +inf past the last lane and where ``active`` (if given, (S, N) bool)
+    is False.  CPU tensors take ``lane_minor_ref``; on a CUDA device one
+    interleave launch (``lane_minor.cuh``, the pass K2's lane form runs
+    inside its own launch), or a view of the offers for one lane and no
+    mask."""
+    if offers.device.type == "cpu" and (active is None
+                                        or active.device.type == "cpu"):
+        return lane_minor_ref(offers, active)
+    if (offers.dim() != 2 or offers.dtype != torch.float32
+            or not offers.is_contiguous() or offers.device.type != "cuda"
+            or (active is not None and (
+                active.shape != offers.shape or active.dtype != torch.bool
+                or active.device != offers.device
+                or not active.is_contiguous()))):
+        raise ValueError(
+            f"lane_minor: expected contiguous f32 (S, N) offers on a CUDA "
+            f"device and an optional bool mask of their shape; got "
+            f"{offers.dtype} {tuple(offers.shape)} on {offers.device}")
+    s, n = offers.shape
+    if s == 1 and active is None:
+        return offers.view(lane_minor_shape(1, n))
+    out = torch.empty(lane_minor_shape(s, n), dtype=torch.float32,
+                      device=offers.device)
+    if out.numel():
+        build.launch("lane_minor", interleave_launcher(), offers.device,
+                     offers.data_ptr(),
+                     0 if active is None else active.data_ptr(),
+                     out.data_ptr(), n, s)
+        lane_minor.launches += 1
+    return out
+
+
+lane_minor.launches = 0
+
+
+class LaneMinorOnce:
+    """``lane_minor`` of the last offers tensor it was given, made again
+    only for another tensor or one written in place since (``_version``):
+    the sharded wave hands every partition of a device the same gathered
+    offers, so a mesh wave makes one copy a device, not one a partition.
+    None for one lane's (N,) offers."""
+
+    def __init__(self):
+        self._of: tuple[torch.Tensor, int] | None = None
+        self._copy: torch.Tensor | None = None
+
+    def __call__(self, offers: torch.Tensor) -> torch.Tensor | None:
+        if offers.dim() != 2:
+            return None
+        if (self._of is None or self._of[0] is not offers
+                or self._of[1] != offers._version):
+            self._copy = lane_minor(offers)
+            self._of = (offers, offers._version)
+        return self._copy
+
+
 def ellpack_relax(offers: torch.Tensor, nbr_idx: torch.Tensor,
-                  nbr_w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  nbr_w: torch.Tensor, *,
+                  offers_minor: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """best[i], arg[i] = min-plus reduction of row i's in-neighbors (per
     lane for (S, N) offers).
 
     Shapes: offers (N,) or (S, N) f32; nbr_idx (R, K) i32 (entries in
     [0, N)); nbr_w (R, K) f32 (+inf padding and tombstones).  No row-count
-    constraint.
+    constraint.  ``offers_minor``: ``lane_minor(offers)`` already made
+    (for (S, N) offers only; the kernel reads the offers from it).
     """
     if (offers.device.type == "cpu" and nbr_idx.device.type == "cpu"
-            and nbr_w.device.type == "cpu"):
-        return ellpack_relax_ref(offers, nbr_idx, nbr_w)
+            and nbr_w.device.type == "cpu" and (
+                offers_minor is None or offers_minor.device.type == "cpu")):
+        return ellpack_relax_ref(offers, nbr_idx, nbr_w,
+                                 offers_minor=offers_minor)
     _check(offers, nbr_idx, nbr_w)
     rows, k = nbr_idx.shape
     lanes = offers.shape[:-1]
+    if offers_minor is not None and (
+            not lanes or tuple(offers_minor.shape) != lane_minor_shape(
+                *offers.shape)
+            or offers_minor.dtype != torch.float32
+            or offers_minor.device != offers.device
+            or not offers_minor.is_contiguous()
+            or offers_minor.data_ptr() % 16):
+        raise ValueError(
+            f"ellpack_relax: offers_minor must be the contiguous, 16-byte "
+            f"aligned f32 lane-minor copy of (S, N) offers on "
+            f"{offers.device}; got {offers_minor.dtype} "
+            f"{tuple(offers_minor.shape)} on {offers_minor.device} for "
+            f"offers {tuple(offers.shape)}")
     best = torch.empty((*lanes, rows), dtype=torch.float32,
                        device=offers.device)
     arg = torch.empty((*lanes, rows), dtype=torch.int32, device=offers.device)
     if best.numel() == 0:
         return best, arg
-    ptrs = (offers.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
-            best.data_ptr(), arg.data_ptr())
     if lanes:
-        build.launch("ellpack_relax", launcher(True), offers.device, *ptrs,
-                     rows, k, offers.shape[-1], lanes[0])
+        minor = lane_minor(offers) if offers_minor is None else offers_minor
+        build.launch("ellpack_relax", launcher(True), offers.device,
+                     minor.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
+                     best.data_ptr(), arg.data_ptr(), rows, k,
+                     offers.shape[-1], lanes[0])
         ellpack_relax.lane_launches += 1
     else:
-        build.launch("ellpack_relax", launcher(), offers.device, *ptrs,
+        build.launch("ellpack_relax", launcher(), offers.device,
+                     offers.data_ptr(), nbr_idx.data_ptr(),
+                     nbr_w.data_ptr(), best.data_ptr(), arg.data_ptr(),
                      rows, k)
     ellpack_relax.launches += 1
     return best, arg

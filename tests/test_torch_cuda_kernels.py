@@ -42,8 +42,10 @@ from repro_torch.kernels.relax.fused import ChunkTable, fused_sliced_relax
 from repro_torch.kernels.relax.gather import gathered_rows_relax
 from repro_torch.kernels.relax.ref import (ellpack_relax_ref,
                                            fused_sliced_relax_ref,
-                                           gathered_rows_relax_ref)
-from repro_torch.kernels.relax.relax import ellpack_relax, variant
+                                           gathered_rows_relax_ref,
+                                           lane_minor_ref, lane_minor_shape)
+from repro_torch.kernels.relax.relax import (LaneMinorOnce, ellpack_relax,
+                                             lane_minor, variant)
 from repro_torch.kernels.spmm.ops import neighbor_reduce
 from repro_torch.kernels.spmm.ref import spmm_ell_ref
 from repro_torch.kernels.spmm.spmm import spmm_ell
@@ -277,7 +279,8 @@ def test_k2_refuses_a_table_of_another_layout(cuda):
 
 
 # ------------------------------------------------- K1 and K2 lane forms --
-LANES = [1, 3, 4, 8]
+# one lane, powers of two and not, one lane group (<= 8) and two (9, 16)
+LANES = [1, 3, 4, 5, 8, 9, 16]
 
 
 def _lanes_of(offers, s, seed, ties=False):
@@ -338,11 +341,12 @@ def test_k1_lanes_match_single_lane_calls(cuda, lanes, n, rows, k, offset,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", LANES)
-@pytest.mark.parametrize("case", [0, 3, 4, 6, 10])
+@pytest.mark.parametrize("case", [0, 3, 4, 5, 6, 10])
 def test_k2_lanes_match_single_lane_calls(cuda, lanes, case):
-    """K2's lane form at the K2_SHAPES geometries: each lane its own dist
-    and active mask (lane 1 all inactive, lane 2 all +inf), against the
-    lane plain version and S single-lane kernel calls."""
+    """K2's lane form at the K2_SHAPES geometries (ties; an empty overflow
+    lane, case 5; hub rows wider than a warp, case 10): each lane its own
+    dist and active mask (lane 1 all inactive, lane 2 all +inf), against
+    the lane plain version and S single-lane kernel calls."""
     widths, slice_rows, n, ocap, ties, frac = K2_SHAPES[case]
     (dist, active), lay = _k2_case(case + lanes, widths, slice_rows, n,
                                    ocap, ties, frac, cuda)
@@ -368,6 +372,48 @@ def test_k2_lanes_match_single_lane_calls(cuda, lanes, case):
     if lanes > 1:
         assert bool(torch.isinf(best[1]).all())
         assert bool((arg[1] == 2**31 - 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3, 4, 9, 16])
+def test_k1_lane_minor_copy_made_by_the_caller(cuda, lanes):
+    """``lane_minor`` on the card equals its plain version (+inf past the
+    last lane and where a mask is False; a view of the offers for one
+    lane), and K1's lane form on a caller-made copy (both variants)
+    equals the call that makes its own; a copy of another shape, dtype or
+    alignment raises before any launch."""
+    offers, idx, w = _case(lanes, 3000, 700, 32, True, cuda, tail=True)
+    offers = _lanes_of(offers, lanes, lanes, ties=True)
+    active = torch.from_numpy(
+        np.random.default_rng(lanes).random(offers.shape) < 0.6).to(cuda)
+    before = lane_minor.launches
+    minor = lane_minor(offers)
+    masked = lane_minor(offers, active)
+    torch.cuda.synchronize()
+    assert lane_minor.launches == before + (1 if lanes == 1 else 2)
+    assert minor.shape == lane_minor_shape(lanes, offers.shape[1])
+    assert torch.equal(minor, lane_minor_ref(offers))
+    assert torch.equal(masked, lane_minor_ref(offers, active))
+    if lanes == 1:
+        assert minor.data_ptr() == offers.data_ptr()
+    flat_i, flat_w = idx.new_zeros(3 + idx.numel()), w.new_zeros(3 + w.numel())
+    flat_i[3:], flat_w[3:] = idx.reshape(-1), w.reshape(-1)
+    for bi, bw in ((idx, w), (flat_i[3:].view(idx.shape),
+                              flat_w[3:].view(w.shape))):
+        launches = ellpack_relax.launches
+        got = ellpack_relax(offers, bi, bw, offers_minor=minor)
+        own = ellpack_relax(offers, bi, bw)
+        assert ellpack_relax.launches == launches + 2
+        assert all(map(torch.equal, got, own))
+        assert all(map(torch.equal, got, ellpack_relax_ref(offers, bi, bw)))
+    g, n, k = minor.shape
+    bad = [torch.full((g, n + 1, k), 1.0, device=cuda), minor.double(),
+           torch.empty(minor.numel() + 1, device=cuda)[1:].view(minor.shape)]
+    launches = ellpack_relax.launches
+    for b in bad:
+        with pytest.raises(ValueError, match="offers_minor"):
+            ellpack_relax(offers, idx, w, offers_minor=b)
+    assert ellpack_relax.launches == launches
 
 
 @pytest.mark.cuda
@@ -1011,7 +1057,7 @@ def _sharded_lanes(device, p, knobs, log_frac=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("lanes", [1, 4, 5, 8, 16])
 @pytest.mark.parametrize("backend,init_k", [("ellpack", 2), ("ellpack", 8),
                                             ("sliced", 1)])
 def test_k1_lanes_on_each_partition_block_of_a_sharded_layout(
@@ -1020,7 +1066,8 @@ def test_k1_lanes_on_each_partition_block_of_a_sharded_layout(
     < N offers; sliced: each width run, a view at its cell offset, the
     scalar variant where that offset is not 16-byte aligned) against the
     gathered [S, N] offers of a sharded lane engine, bit for bit: the lane
-    plain version and S single-lane calls."""
+    plain version and S single-lane calls; and on the one lane-minor copy
+    the sharded wave shares between partitions (``LaneMinorOnce``)."""
     knobs = (dict(relax_backend="ellpack", ell_init_k=init_k)
              if backend == "ellpack" else
              dict(relax_backend="sliced", sliced_slice_rows=64,
@@ -1030,6 +1077,8 @@ def test_k1_lanes_on_each_partition_block_of_a_sharded_layout(
     offers = _lanes_of(gathered[0], lanes, lanes)
     offers[:min(lanes, 4)] = gathered[:min(lanes, 4)]
     seen = set()
+    once = LaneMinorOnce()
+    first = once(offers)
     for st in eng.bk.states:
         if backend == "ellpack":
             blocks = [(st.nbr_idx, st.nbr_w)]
@@ -1045,7 +1094,11 @@ def test_k1_lanes_on_each_partition_block_of_a_sharded_layout(
         for idx, w in blocks:
             assert idx.shape[0] < offers.shape[1]
             seen.add(variant(idx, w))
-            _k1_lanes_equal(offers, idx, w)
+            best, arg = _k1_lanes_equal(offers, idx, w)
+            shared = once(offers)     # the one copy of every partition
+            assert shared is first
+            got = ellpack_relax(offers, idx, w, offers_minor=shared)
+            assert torch.equal(got[0], best) and torch.equal(got[1], arg)
     assert seen
 
 
