@@ -29,6 +29,10 @@ Phases (any failure raises and exits non-zero):
      variants, views at a cell offset) and K2 lane forms at S = 1, 4, 5,
      8, 16 (one lane group and two) against the lane plain version and S
      single-lane kernel calls, and K1's on a caller-made lane-minor copy;
+     K3's lane form at the same S against its lane plain version and S
+     single-lane K3 calls (an all-masked lane, a hub-row lane, two equal
+     lanes; E = 0, R = 1, the sparse path's E = 16,384 over 2^20 rows)
+     and in a CUDA graph replayed on new inputs;
   3. the dense-ELL path: ``make_engine(relax_backend="ellpack",
      batch_deletions=True)`` over the ER sliding-window ADD/DEL/QUERY stream
      at 2^20 vertices / 2^23 edges (queries every window/10), K1's count
@@ -60,7 +64,16 @@ Phases (any failure raises and exits non-zero):
      version at the shapes that path gave it, timed three ways at the
      largest; then the 2^16 RMAT
      sliding-window stream (DEL epochs too) sparse on K3 against sparse on
-     the plain version;
+     the plain version; then (6c) the localized stream with ``sources=``
+     LANES lanes (vertex 0 and the three other vertices of highest
+     in-degree in the base graph), sparse with no kernel flag: K3's lane
+     form and never the single-lane kernel (both counts set to 0 just
+     before the batches and read just after), a query after each batch,
+     every lane equal to a dense segment lane engine at every query, lane
+     0 to phase 6a's run at both of its queries, Dijkstra for every lane;
+     host reads per wave, source-events/s, and the lane form at the leg's
+     largest edge list timed three ways beside S single-lane calls, its
+     bound (``gather.wave_bytes(lanes=4)``) and its lane plain version;
   7. the neighbour-aggregation and embedding-bag entry points,
      ``neighbor_reduce`` (K4) and ``bag_lookup`` (K5), forward and
      backward, at the published widths of their two model families:
@@ -90,9 +103,11 @@ Phases (any failure raises and exits non-zero):
      (``relax.lane_minor``, the same pass K2 runs inside its launch)
      timed apart;
   10. at 2^16 (the ER recipe's first quarter of events): 4 lanes on
-     segment, ellpack, sliced unfused, auto and the sparse frontier, under
-     rounds and buckets, each lane equal to a single-source engine at
-     every query; ``sparse_drain`` on K3 against the plain version;
+     segment, ellpack, sliced unfused, auto and the sparse frontier (K3's
+     lane form), under rounds and buckets, each lane equal to a
+     single-source engine at every query; ``sparse_drain`` on K3 against
+     the plain version, one source and then on ``[S, N]`` lanes (K3's lane
+     form);
   12. the serving path with observability: phase 8's cut of the ER stream
      lifted into a ``ServingTrace`` and replayed (``replay_trace``) on the
      dense ELL block (K1), observability off and then on with a default
@@ -180,7 +195,8 @@ Phases (any failure raises and exits non-zero):
      thread while (b) and (c) run); (b) serving at full
      CONFIG with bf16 weights for qwen3-14b (GQA, G = 5, qk-norm),
      minicpm3-4b (MLA) and olmoe-1b-7b (MoE 64 experts top 8): prefill
-     1 x 16,384 (**cut** from prefill_32k's 32 x 32,768: time), then
+     1 x 16,384 (**cut** from prefill_32k's 32 x 32,768: time; minicpm3-4b
+     1 x 8,192, **cut** further to keep the script's time), then
      decode_32k's capacity with the cache filled to 32,751 from a seeded
      generator at B 4 / 32 / 8 (**cut** from 128: memory), a warm step
      and DECODE_STEPS timed; prefill s and tokens/s, decode ms p50 and
@@ -215,9 +231,10 @@ Phases (any failure raises and exits non-zero):
      so it runs the epoch's rounds), the measured peak above the
      arguments beside the predicted ``temp_bytes`` and the roofline share
      ``bound_s / measured`` (printed, not held);
-  11. the card line, a JSON ``kernels`` line (every kernel with ``ms``,
-     ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1 and K2
-     with a ``lanes`` record of their lane forms; K1-K3 with
+  11. the whole script's time, the card line, a JSON ``kernels`` line (every kernel with ``ms``,
+     ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1, K2
+     and K3 with a ``lanes`` record of their lane forms (K3's from phase
+     6c, with phase 10's launches as ``cross_check_launches``); K1-K3 with
      ``serving_launches``, their counts in phase 12's legs; K1 with
      ``sharded_launches``, its count in phase 13's full-width leg, a
      ``sharded`` record, and a ``sharded_lanes`` record of phase 14), and
@@ -500,30 +517,38 @@ def compare(torch, name, kernel_out, plain_out) -> float:
 def snapshot_check(n, source, src, dst, w, dist, parent, atol=1e-4):
     """check_tree's contract, vectorized: distances within (atol, rtol
     1e-5) of an f64 Dijkstra; every reached non-source vertex's parent edge
-    exists and is tight; unreached vertices have no parent."""
+    exists and is tight; unreached vertices have no parent.  ``source``
+    may be a sequence of S sources with ``dist`` and ``parent`` [S, N]
+    (lanes): the graph and its sorted edge keys are built once for all.
+    Returns the reached count (a list of them for lanes)."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
+    lanes = np.ndim(source) > 0
     g = csr_matrix((w.astype(np.float64), (src, dst)), shape=(n, n))
-    ref = dijkstra(g, directed=True, indices=source)
-    got = dist.astype(np.float64)
-    big = lambda x: np.where(np.isinf(x), 1e30, x)   # noqa: E731
-    assert np.allclose(big(ref), big(got), atol=atol, rtol=1e-5), \
-        "dist differs from Dijkstra"
-    reached = np.isfinite(ref)
-    v = np.nonzero(reached & (np.arange(n) != source))[0]
-    assert (parent[~reached] == -1).all(), "unreached vertex has a parent"
-    p = parent[v].astype(np.int64)
-    assert (p >= 0).all(), "reached vertex lacks a parent"
     keys = (src.astype(np.int64) << 32) | dst.astype(np.int64)
     order = np.argsort(keys)
-    want = (p << 32) | v
-    pos = np.clip(np.searchsorted(keys[order], want), 0, len(keys) - 1)
-    assert (keys[order][pos] == want).all(), "parent edge not in the graph"
-    wt = w[order][pos].astype(np.float64)
-    slack = np.abs(got[p] + wt - got[v])
-    assert (slack < np.maximum(atol, 1e-5 * np.maximum(1.0, np.abs(got[v])))
-            ).all(), "tree edge not tight"
-    return int(reached.sum())
+    keys, w_sorted = keys[order], w[order]
+    big = lambda x: np.where(np.isinf(x), 1e30, x)   # noqa: E731
+    counts = []
+    for s, d, par in zip(np.atleast_1d(source), np.atleast_2d(dist),
+                         np.atleast_2d(parent)):
+        ref = dijkstra(g, directed=True, indices=int(s))
+        got = d.astype(np.float64)
+        assert np.allclose(big(ref), big(got), atol=atol, rtol=1e-5), \
+            "dist differs from Dijkstra"
+        reached = np.isfinite(ref)
+        v = np.nonzero(reached & (np.arange(n) != s))[0]
+        assert (par[~reached] == -1).all(), "unreached vertex has a parent"
+        p = par[v].astype(np.int64)
+        assert (p >= 0).all(), "reached vertex lacks a parent"
+        want = (p << 32) | v
+        pos = np.clip(np.searchsorted(keys, want), 0, len(keys) - 1)
+        assert (keys[pos] == want).all(), "parent edge not in the graph"
+        slack = np.abs(got[p] + w_sorted[pos].astype(np.float64) - got[v])
+        assert (slack < np.maximum(atol, 1e-5 * np.maximum(
+            1.0, np.abs(got[v])))).all(), "tree edge not tight"
+        counts.append(int(reached.sum()))
+    return counts if lanes else counts[0]
 
 
 def same_results(name, got, want) -> None:
@@ -662,6 +687,80 @@ def k3_check(torch, args, num_rows) -> float:
     from repro_torch.kernels.relax.ref import gathered_rows_relax_ref
     return compare(torch, "K3", gathered_rows_relax(*args, num_rows=num_rows),
                    gathered_rows_relax_ref(*args, num_rows=num_rows))
+
+
+def k3_lanes_case(torch, seed, lanes, e, n):
+    """[S, E] edge lists with ties: lane 1 all masked, lane 2 every slot on
+    one hub row, lane 3 a copy of lane 0 (the same rows and keys in two
+    lanes), the others drawn apart."""
+    rows = []
+    for t in range(lanes):
+        rows.append(rows[0] if t == 3 else k3_case(
+            torch, seed + t, e, n, ties=True,
+            mask_frac=0.0 if t == 1 else 0.8, hub=t == 2))
+    return [torch.stack(col).contiguous() for col in zip(*rows)]
+
+
+def k3_lanes_check(torch, args, num_rows) -> float:
+    """K3's lane form against its lane plain version and, lane by lane,
+    single-lane K3 calls on the same edge lists.  Returns the max |best
+    difference| (0)."""
+    from repro_torch.kernels.relax.gather import (gathered_rows_relax,
+                                                  gathered_rows_relax_lanes)
+    from repro_torch.kernels.relax.ref import gathered_rows_relax_lanes_ref
+    got = gathered_rows_relax_lanes(*args, num_rows=num_rows)
+    err = compare(torch, "K3 lanes", got, gathered_rows_relax_lanes_ref(
+        *args, num_rows=num_rows))
+    for t in range(got[0].shape[0]):
+        compare(torch, f"K3 lane {t}", (got[0][t], got[1][t]),
+                gathered_rows_relax(*(a[t] for a in args),
+                                    num_rows=num_rows))
+    return err
+
+
+def k3_lanes_graph_check(torch) -> None:
+    """K3's lane form captured in a CUDA graph, replayed on new inputs
+    written in place: each replay equals the lane plain version."""
+    from repro_torch.kernels.relax.gather import gathered_rows_relax_lanes
+    from repro_torch.kernels.relax.ref import gathered_rows_relax_lanes_ref
+    n = 5000
+    args = k3_lanes_case(torch, 80, 5, 4096, n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gathered_rows_relax_lanes(*args, num_rows=n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gathered_rows_relax_lanes(*args, num_rows=n)
+    for seed in (81, 82):
+        for a, b in zip(args, k3_lanes_case(torch, seed, 5, 4096, n)):
+            a.copy_(b)
+        graph.replay()
+        compare(torch, "K3 lanes graph", out,
+                gathered_rows_relax_lanes_ref(*args, num_rows=n))
+
+
+K3_LANE_SHAPES = ((0, 12), (85, 40), (300, 1), (4096, 5000),
+                  (16_384, 1 << 20))   # (E, R): E = 0, R = 1, the sparse path
+
+
+def k3_lane_edge_cases(torch) -> None:
+    """Phase 2 for K3's lane form: S in LANE_CASES on ragged lanes at
+    K3_LANE_SHAPES, and in a CUDA graph."""
+    n_cases = 0
+    for lanes in LANE_CASES:
+        for i, (e, n) in enumerate(K3_LANE_SHAPES):
+            k3_lanes_check(torch, k3_lanes_case(torch, 90 + 10 * i, lanes, e,
+                                                n), n)
+            n_cases += 1
+    k3_lanes_graph_check(torch)
+    print(f"[2] K3 lane form at S = {LANE_CASES}: bit-identical to the lane "
+          f"plain version and to S single-lane K3 calls on {n_cases} cases "
+          f"((E, R) in {K3_LANE_SHAPES}; an "
+          f"all-masked lane, a lane with every slot on one hub row, two "
+          f"equal lanes: ties across lanes), and in a CUDA graph replayed "
+          f"on new inputs")
 
 
 def k3_graph_check(torch) -> None:
@@ -995,6 +1094,7 @@ def kernel_edge_cases(torch) -> None:
           f"empty edge list, one hub row hit by every slot, duplicate "
           f"slots, R = 1, up to E = 2^20), and in a CUDA graph replayed on "
           f"new inputs")
+    k3_lane_edge_cases(torch)
     gather_edge_cases(torch)
 
 
@@ -1257,10 +1357,12 @@ def localized_batches(n: int):
     return batches   # one log each: ingest_log runs each as its own epoch
 
 
-def sparse_path(torch):
+def sparse_path(torch, ctx):
     """Phase 6a: the localized stream at 2^20, sparse on K3 against dense
     segment.  The inputs of the last K3 call of each edge-list length are
-    kept for the kernel comparison at the path's own shapes."""
+    kept for the kernel comparison at the path's own shapes; the sparse
+    run's queries and rate, and the base graph, go to ``ctx["sparse"]``
+    for leg 6c."""
     import repro_torch
     from repro_torch.core import events as ev
     from repro_torch.core import frontier as frontier_mod
@@ -1302,6 +1404,8 @@ def sparse_path(torch):
     (sparse, s_wall, l3, s_waves) = runs["sparse"]
     assert d_l3 == 0 and l3 > 0, "the sparse path never launched K3"
     same_results("sparse vs dense", sparse, dense)
+    ctx["sparse"] = dict(results=sparse, events_per_s=384 / s_wall,
+                         graph=(n, bs, bd, bw))
     us = sync_us(torch, n)
     print(f"[6] sparse + K3 identical to dense segment (dist, parent, "
           f"rounds, messages; stats {sparse[-1].epoch_stats}): dense "
@@ -1352,6 +1456,187 @@ def sparse_cross_check(torch) -> None:
           f"{k_wall:.2f} s) and on the plain version ({p_wall:.2f} s) "
           f"identical at all {len(got)} queries (stats "
           f"{got[-1].epoch_stats})")
+
+
+READ_METHODS = ("cpu", "to", "item", "tolist", "numpy", "__bool__",
+                "__int__", "__float__", "__index__", "__array__")
+
+
+class HostReads:
+    """Counts device-to-host reads of CUDA tensors (the READ_METHODS whose
+    result leaves the card) while active, except inside ``eng.query``,
+    whose readback is the answer and not a wave's."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.reads = torch, eng, 0
+        self._query = [False]
+
+    def __enter__(self):
+        torch = self.torch
+        self._saved = {m: getattr(torch.Tensor, m) for m in READ_METHODS}
+        for meth, real in self._saved.items():
+            def counted(t, *a, _real=real, **k):
+                out = _real(t, *a, **k)
+                if (not self._query[0] and t.is_cuda
+                        and not (isinstance(out, torch.Tensor)
+                                 and out.is_cuda)):
+                    self.reads += 1
+                return out
+            setattr(torch.Tensor, meth, counted)
+        real_query = self.eng.query
+
+        def query(*a, **k):
+            self._query[0] = True
+            try:
+                return real_query(*a, **k)
+            finally:
+                self._query[0] = False
+        self.eng.query = query
+        return self
+
+    def __exit__(self, *exc):
+        for meth, real in self._saved.items():
+            setattr(self.torch.Tensor, meth, real)
+        del self.eng.query
+        return False
+
+
+def sparse_lanes_path(torch, ctx) -> dict:
+    """Phase 6c: phase 6a's localized stream at 2^20 with ``sources=`` 4
+    lanes (vertex 0, phase 6a's source, and the three other vertices of
+    highest in-degree in the base graph), sparse with no kernel flag: K3's
+    lane form, never the single-lane kernel (both counts set to 0 just
+    before the batches and read just after).  A query after each batch;
+    every lane equal to a dense segment engine with the same sources at
+    every query, lane 0 to phase 6a's run at both of its queries (after the
+    base, after the 48th batch), every lane through Dijkstra at the end.
+    Host reads per wave, source-events/s, and K3's lane form timed at the
+    leg's largest edge list beside S single-lane calls, its bound and its
+    lane plain version.  Returns K3's ``lanes`` record."""
+    import repro_torch
+    from repro_torch.core import events as ev
+    from repro_torch.core import frontier as frontier_mod
+    from repro_torch.graphs import generators
+    from repro_torch.kernels.relax import gather as k3
+    from repro_torch.kernels.relax.ref import gathered_rows_relax_lanes_ref
+    t0 = time.perf_counter()
+    n, bs, bd, bw = ctx["sparse"]["graph"]
+    top = [int(v) for v in generators.top_in_degree_sources(n, bd, LANES)]
+    sources = (0, *[v for v in top if v != 0][:LANES - 1])
+    base = ev.adds(bs, bd, bw)
+    batches = localized_batches(n)
+    log = ev.EventLog.concatenate(
+        [x for b in batches for x in (b, ev.query_marker())])
+    cap = len(bs) + 8 * 48 + 64
+    shapes = {}
+    real = frontier_mod.gathered_rows_relax_lanes
+
+    def recording(*args, **kw):
+        shapes[args[0].shape[1]] = (args, kw)
+        return real(*args, **kw)
+
+    waves = [0]
+    real_wave = frontier_mod.ladder_wave
+
+    def counted_wave(*a, **k):
+        waves[0] += 1
+        return real_wave(*a, **k)
+
+    runs = {}
+    for mode, knobs in (("dense", {}), ("sparse", dict(
+            frontier_mode="sparse"))):             # K3's lane form
+        eng = repro_torch.make_engine(num_vertices=n, edge_capacity=cap,
+                                      source=0, sources=sources, **knobs)
+        eng.ingest_log(base)                       # untimed base build
+        q0 = eng.query()
+        fn = k3.gathered_rows_relax
+        fn.launches = fn.lane_launches = 0
+        waves[0] = 0
+        frontier_mod.gathered_rows_relax_lanes = recording
+        frontier_mod.ladder_wave = counted_wave
+        try:
+            with HostReads(torch, eng) as reads:
+                t1 = time.perf_counter()
+                res = eng.ingest_log(log)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+        finally:
+            frontier_mod.gathered_rows_relax_lanes = real
+            frontier_mod.ladder_wave = real_wave
+        ingest_s = wall - sum(r.latency_s for r in res)
+        runs[mode] = dict(results=[q0, *res], wall=wall, ingest_s=ingest_s,
+                          launches=(fn.launches, fn.lane_launches),
+                          reads=reads.reads, waves=waves[0])
+    dense, sparse = runs["dense"], runs["sparse"]
+    single, lanes_l = sparse["launches"]
+    assert lanes_l > 0 and single == 0, \
+        f"[6c] K3 launches {single} single-lane, {lanes_l} lane form"
+    assert dense["launches"] == (0, 0) and dense["waves"] == 0
+    lane_results_equal("[6c] sparse lanes vs dense lanes",
+                       sparse["results"], dense["results"])
+    want = ctx["sparse"]["results"]
+    for i, (a, b) in enumerate(zip((sparse["results"][0],
+                                    sparse["results"][-1]), want,
+                                   strict=True)):
+        assert np.array_equal(a.dist[0], b.dist) and np.array_equal(
+            a.parent[0], b.parent), f"[6c] lane 0 vs phase 6a at query {i}"
+        for key in ("rounds", "messages"):
+            assert a.epoch_stats[key][0] == b.epoch_stats[key], \
+                f"[6c] lane 0's {key} differ from phase 6a at query {i}"
+    q = sparse["results"][-1]
+    coo = eng.alloc.active_coo()
+    reached = snapshot_check(n, sources, *coo, q.dist, q.parent)
+    n_topo = 8 * len(batches)
+    rate = LANES * n_topo / sparse["ingest_s"]
+    rate6a = ctx["sparse"]["events_per_s"]
+    per_wave = sparse["reads"] / sparse["waves"]
+    print(f"[6c] localized stream with {LANES} lanes (sources {sources}), "
+          f"sparse on K3's lane form: {len(sparse['results'])} queries "
+          f"bit-identical to dense segment lanes (dist, parent, per-lane "
+          f"rounds and messages), lane 0 to phase 6a's run at both of its "
+          f"queries; every lane passes Dijkstra (reached {reached}); "
+          f"{sparse['waves']} ladder waves, {sparse['reads']} host reads "
+          f"outside the queries = {per_wave:.3f} a wave ({len(batches)} "
+          f"epochs, one flag read more each); {rate:.0f} source-events/s "
+          f"(S x topology events / ingest wall, queries excluded; 4 x phase "
+          f"6a's sparse rate = {LANES * rate6a:.0f}; printed, not held); "
+          f"dense lanes {LANES * n_topo / dense['ingest_s']:.0f}; K3 "
+          f"launches: lane form {lanes_l}, single-lane {single}")
+
+    for e, (args, kw) in sorted(shapes.items()):
+        err = k3_lanes_check(torch, args, kw["num_rows"])
+    e, (args, kw) = max(shapes.items())
+    r = kw["num_rows"]
+    times = kernel_times(
+        torch, lambda: k3.gathered_rows_relax_lanes(*args, **kw), 200)
+    singles = lambda: [k3.gathered_rows_relax(  # noqa: E731
+        *(a[t] for a in args), **kw) for t in range(LANES)]
+    singles_ms = device_ms(torch, singles)
+    singles_us = host_us(torch, singles)
+    plain_ms = cuda_ms(
+        torch, lambda: gathered_rows_relax_lanes_ref(*args, **kw), 20)
+    live = int(args[4].sum())
+    nbytes = k3.wave_bytes(e, live, r, lanes=LANES)
+    bound_ms, bound_by = bound(nbytes, 2 * live)
+    share = bound_ms / times["device_ms"]
+    print(f"[6c] K3 lane form bit-identical to its lane plain version and "
+          f"to S single-lane calls at the leg's edge-list lengths "
+          f"{sorted(shapes)}; at S={LANES} E={e} ({live} masked in) R={r}: "
+          f"{times_text(times)}; S single-lane calls on the same lanes "
+          f"{singles_ms:.4f} ms device, {singles_us:.1f} us host (ratio "
+          f"{times['device_ms'] / singles_ms:.3f}); bound {bound_ms:.4f} ms "
+          f"= {nbytes / 1e6:.2f} MB at 3.35 TB/s, {100 * share:.1f} % of "
+          f"it; the lane plain version {plain_ms:.4f} ms; phase 6c in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del runs, sparse, dense, eng, q
+    return {"lanes": LANES, "launches": lanes_l, "single_launches": single,
+            "max_abs_err": err, **times, "single_lanes_device_ms": singles_ms,
+            "single_lanes_host_us": singles_us,
+            "ratio_to_single_lanes": times["device_ms"] / singles_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": share, "reads_per_wave": per_wave,
+            "source_events_per_s": rate,
+            "shape": {"edges": e, "masked_in": live, "rows": r}}
 
 
 # ------------------------------ phases 8-10: buckets and batched lanes --
@@ -1492,8 +1777,7 @@ def lanes_legs(torch, ctx) -> tuple[dict, dict]:
                 f"[9] {label}: lane 0 differs from the single run at query {i}"
         q = eng.query()
         coo = eng.alloc.active_coo()
-        reached = [snapshot_check(n, s, *coo, q.dist[i], q.parent[i])
-                   for i, s in enumerate(sources)]
+        reached = snapshot_check(n, sources, *coo, q.dist, q.parent)
         print(f"[9] {label} with {len(sources)} lanes (sources {sources}), "
               f"its first {len(log)} events ({n_topo} topology): {wall:.2f} "
               f"s, {len(sources) * n_topo / wall:.0f} source-events/s (S x "
@@ -1545,11 +1829,12 @@ def lanes_cross_check(torch) -> None:
     """Phase 10: LANES lanes at 2^16 on the ER recipe (its first quarter of
     events) on segment, ellpack (K1's lane form), sliced unfused (K1's
     lane form once per width run), auto (K2's lane form) and the sparse
-    frontier (K3 once per lane), under rounds and buckets: every lane
-    equals a single-source segment engine of its source at every query,
-    its round and message counts too.  Then a bucketed sparse engine's
-    drains (``sparse_drain``) on K3 against the same on the plain
-    version."""
+    frontier (K3's lane form), under rounds and buckets: every lane equals
+    a single-source segment engine of its source at every query, its round
+    and message counts too.  Then a bucketed sparse engine's drains
+    (``sparse_drain``) on K3 against the same on the plain version, one
+    source and then the lanes (K3's lane form).  Returns the lane form's
+    launches in this phase."""
     from repro_torch.kernels.relax import fused as k2
     from repro_torch.kernels.relax import gather as k3
     from repro_torch.kernels.relax import relax as k1
@@ -1563,8 +1848,9 @@ def lanes_cross_check(torch) -> None:
                 dict(relax_backend="sliced", ell_use_kernel=True,
                      sliced_fused=False), 0),
                ("auto on K2 lanes", dict(relax_backend="auto"), 1),
-               ("sparse on K3 per lane", dict(relax_backend="segment",
-                                              frontier_mode="sparse"), 2))
+               ("sparse on K3's lane form",
+                dict(relax_backend="segment", frontier_mode="sparse"), 2))
+    k3_lane_launches = 0
     for sched in (dict(), dict(wave_schedule="buckets", bucket_width=1.0)):
         singles = [engine(n, e, s, **sched).ingest_log(log) for s in sources]
         counts = []
@@ -1575,12 +1861,16 @@ def lanes_cross_check(torch) -> None:
                          **sched)
             res = eng.ingest_log(log)
             torch.cuda.synchronize()
-            launched = [fn.lane_launches if i < 2 else fn.launches
-                        for i, fn in enumerate(kernels)]
+            launched = [fn.lane_launches for fn in kernels]
             if which is None:
                 assert sum(fn.launches for fn in kernels) == 0, name
+                assert sum(launched) == 0, name
             else:
                 assert launched[which] > 0, f"[10] {name}: {launched}"
+            if which == 2:
+                assert k3.gathered_rows_relax.launches == 0, \
+                    f"[10] {name}: the single-lane K3 launched"
+                k3_lane_launches += launched[2]
             for i, want in enumerate(singles):
                 for q, (a, b) in enumerate(zip(res, want)):
                     ok = (np.array_equal(a.dist[i], b.dist)
@@ -1604,9 +1894,28 @@ def lanes_cross_check(torch) -> None:
     (_, got, (l3,)), (_, want, (plain,)) = runs
     assert l3 > 0 and plain == 0, (l3, plain)
     same_results("sparse_drain K3 vs plain", got, want)
+    fn = k3.gathered_rows_relax
+    runs = []
+    for kernel in (True, False):
+        fn.launches = fn.lane_launches = 0
+        eng = engine(n, e, sources[0], sources=tuple(sources),
+                     frontier_mode="sparse", frontier_kernel=kernel,
+                     wave_schedule="buckets", bucket_width=1.0)
+        res = eng.ingest_log(log)
+        torch.cuda.synchronize()
+        runs.append((res, fn.launches, fn.lane_launches))
+    (got_l, single, lanes_l), (want_l, p_single, p_lanes) = runs
+    assert lanes_l > 0 and single == 0 and p_single == p_lanes == 0, runs[0][1:]
+    lane_results_equal("[10] batched sparse_drain K3 lanes vs plain",
+                       got_l, want_l)
+    k3_lane_launches += lanes_l
     print(f"[10] sparse_drain on K3 (launches {l3}) identical to the plain "
-          f"version at all {len(got)} queries; phase 10 in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"version at all {len(got)} queries; on {len(sources)} lanes "
+          f"(sparse_drain on [S, N], K3's lane form: {lanes_l} launches, "
+          f"the single-lane K3 none) identical to the plain version at all "
+          f"{len(got_l)} queries (dist, parent, per-lane rounds and "
+          f"messages); phase 10 in {time.perf_counter() - t0:.1f} s")
+    return k3_lane_launches
 
 
 # --------------------- phase 12: the serving path with observability --
@@ -2193,9 +2502,8 @@ def sharded_lanes_full_width(torch, ctx) -> tuple[dict, list]:
             a.parent[0], b.parent), f"[14] lane 0 vs phase 13 at query {i}"
     live = [np.concatenate(x)
             for x in zip(*(a.active_coo() for a in eng.allocs))]
-    reached = [snapshot_check(n, s, *live, res[-1].dist[i],
-                              res[-1].parent[i])
-               for i, s in enumerate(sources)]
+    reached = snapshot_check(n, sources, *live, res[-1].dist,
+                             res[-1].parent)
     rate, rate9 = S * n_topo / wall, S * n_topo / lanes["wall"]
     print(f"[14] ER sharded lanes, {SHARDS} partitions on cuda:0, {S} lanes "
           f"(sources {sources}), its first {len(log)} events ({n_topo} "
@@ -2919,10 +3227,12 @@ LM_ARCHS = ("qwen3-14b", "olmoe-1b-7b", "minicpm3-4b", "mistral-large-123b",
 LM_TOL = {"loss": 2e-3, "grad_norm": 1e-2, "logits": 3e-2}
 LM_WIDTH_SEQ = 64          # (a): B = 1, S = 64, one layer
 # (b): prefill B = 1 at S = 16,384 (cut from prefill_32k's 32 x 32,768:
-# time) and decode_32k's capacity with the cache at 32,751 (B cut from 128:
-# memory)
+# time; minicpm3-4b at 8,192, whose f32 MLA attention loop took 37.8 s at
+# 16,384, to keep the script under 900 s) and decode_32k's capacity with
+# the cache at 32,751 (B cut from 128: memory)
 LM_SERVE = {"qwen3-14b": 4, "minicpm3-4b": 32, "olmoe-1b-7b": 8}
-PREFILL_SEQ = 16_384
+PREFILL_SEQ = {"qwen3-14b": 16_384, "minicpm3-4b": 8_192,
+               "olmoe-1b-7b": 16_384}
 DECODE_LEN = 32_751
 DECODE_STEPS = 16
 CHECK_PREFIX, CHECK_STEPS = 256, 8   # (b)'s consistency check, 2 layers
@@ -3126,7 +3436,7 @@ def cache_fill(torch, cache, length: int, seed: int):
 
 def serve_full(torch, arch) -> dict:
     """(b) Serving at full CONFIG with bf16 weights (as the reference's
-    serving programs cast them): prefill B = 1 at PREFILL_SEQ, then
+    serving programs cast them): prefill B = 1 at PREFILL_SEQ[arch], then
     decode_32k's cache (capacity 32,768) filled to DECODE_LEN and
     DECODE_STEPS timed steps after a warm one at batch LM_SERVE[arch];
     then the 2-layer consistency check."""
@@ -3141,19 +3451,21 @@ def serve_full(torch, arch) -> dict:
     model = tfm.init_lm(cfg, gen, CARD, dtype=torch.bfloat16)
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     rec = {"arch": arch, "weights_gb": w_bytes / 1e9}
-    # prefill: a short warm-up, then PREFILL_SEQ tokens once
+    # prefill: a short warm-up, then PREFILL_SEQ[arch] tokens once
+    seq = PREFILL_SEQ[arch]
     tfm.prefill(model, lm_batch(torch, cfg, 1, 512, SEED, CARD)["tokens"],
                 cfg, 512)
-    toks = lm_batch(torch, cfg, 1, PREFILL_SEQ, SEED, CARD)["tokens"]
+    toks = lm_batch(torch, cfg, 1, seq, SEED, CARD)["tokens"]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, cache = tfm.prefill(model, toks, cfg, PREFILL_SEQ)
+    logits, cache = tfm.prefill(model, toks, cfg, seq)
     torch.cuda.synchronize()
     rec["prefill_s"] = time.perf_counter() - t
     assert bool(torch.isfinite(logits[0, -1].float()).all()), arch
-    assert cache.length == PREFILL_SEQ
-    rec["prefill_tok_s"] = PREFILL_SEQ / rec["prefill_s"]
-    rec["prefill_tflops"] = cfg.model_flops(PREFILL_SEQ, train=False) \
+    assert cache.length == seq
+    rec["prefill_seq"] = seq
+    rec["prefill_tok_s"] = seq / rec["prefill_s"]
+    rec["prefill_tflops"] = cfg.model_flops(seq, train=False) \
         / rec["prefill_s"] / 1e12
     rec["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
     del logits, cache
@@ -3198,7 +3510,7 @@ def serve_full(torch, arch) -> dict:
     rec["check"] = serve_check(torch, arch)
     rec["seconds"] = time.perf_counter() - t0
     print(f"[16b] {arch} bf16 weights {rec['weights_gb']:.2f} GB: prefill "
-          f"1 x {PREFILL_SEQ} in {rec['prefill_s']:.3f} s "
+          f"1 x {seq} in {rec['prefill_s']:.3f} s "
           f"({rec['prefill_tok_s']:.0f} tokens/s, model "
           f"{rec['prefill_tflops']:.2f} TFLOP/s, peak "
           f"{rec['prefill_peak_gb']:.2f} GB); decode B {B} at "
@@ -3375,14 +3687,15 @@ def launcher_cycle(torch) -> dict:
 
 def attention_times(torch) -> dict:
     """(e) The port's flash forward at (b)'s qwen3 prefill shape (B = 1, S
-    = PREFILL_SEQ, 40 query / 8 kv heads, d 128, bf16 inputs) beside
-    ``F.scaled_dot_product_attention`` on the same inputs (causal, GQA):
+    = PREFILL_SEQ["qwen3-14b"], 40 query / 8 kv heads, d 128, bf16 inputs)
+    beside ``F.scaled_dot_product_attention`` on the same inputs (causal, GQA):
     printed only; neither is on a kernel path."""
     import torch.nn.functional as F
     from repro_torch.configs import registry as reg
     from repro_torch.models import flash
     cfg = reg.arch("qwen3-14b").CONFIG
-    S, nq, nkv, D = PREFILL_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S, nq, nkv, D = (PREFILL_SEQ["qwen3-14b"], cfg.n_heads, cfg.n_kv_heads,
+                     cfg.head_dim)
     gen = torch.Generator(device=CARD).manual_seed(SEED)
     q, k, v = (torch.randn((1, S, h, D), generator=gen, device=CARD,
                            dtype=torch.bfloat16) for h in (nq, nkv, nkv))
@@ -3755,6 +4068,7 @@ def aggregation_path(torch):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3781,14 +4095,15 @@ def main() -> int:
     ctx = {}
     kernels = [dense_ell_path(torch, ctx), hub_path(torch, ctx)]
     hub_cross_check(torch)
-    kernels.append(sparse_path(torch))
+    kernels.append(sparse_path(torch, ctx))
     sparse_cross_check(torch)
+    kernels[2]["lanes"] = sparse_lanes_path(torch, ctx)
 
     # ---- 8.-10. the bucketed schedule and batched lanes
     buckets_legs(torch, ctx)
     k1_lanes, k2_lanes = lanes_legs(torch, ctx)
     kernels[0]["lanes"], kernels[1]["lanes"] = k1_lanes, k2_lanes
-    lanes_cross_check(torch)
+    kernels[2]["lanes"]["cross_check_launches"] = lanes_cross_check(torch)
 
     # ---- 12. the serving path with observability
     served = serving_legs(torch, ctx)
@@ -3826,6 +4141,7 @@ def main() -> int:
     kernels.extend(aggregation_path(torch))
 
     # ---- 11. result lines
+    print(f"[11] the whole script in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -282,10 +282,8 @@ class SSSPDelEngine(StreamEngineBase):
             self._pend_bound += tails
         else:
             if self._route_sparse(tails):
-                sp_fn = (frontier_mod.sparse_relax_until_converged
-                         if self.sources is None
-                         else frontier_mod.sparse_relax_batched)
-                self.state.sssp, stats, occ = sp_fn(
+                sparse = frontier_mod.sparse_relax_until_converged
+                self.state.sssp, stats, occ = sparse(
                     self.state.sssp, self.state.edges, self._out.state,
                     frontier, num_vertices=self.cfg.num_vertices,
                     caps=self._caps, use_kernel=self._frontier_kernel)
@@ -343,10 +341,8 @@ class SSSPDelEngine(StreamEngineBase):
         # the affected region's size is device-only knowledge, so only
         # "sparse" routes deletions sparse; "auto" keeps them dense
         if self.cfg.frontier_mode == "sparse":
-            sp_fn = (frontier_mod.sparse_invalidate_and_recompute
-                     if self.sources is None
-                     else frontier_mod.sparse_delete_batched)
-            self.state.sssp, dstats, occ = sp_fn(
+            sparse = frontier_mod.sparse_invalidate_and_recompute
+            self.state.sssp, dstats, occ = sparse(
                 self.state.sssp, self.state.edges, self._out.state, seed,
                 num_vertices=self.cfg.num_vertices, caps=self._caps,
                 use_doubling=self.cfg.use_doubling,
@@ -377,9 +373,7 @@ class SSSPDelEngine(StreamEngineBase):
         with self.obs.epoch("drain"):
             bw = self._bucket_width()
             if self._route_sparse(self._pend_bound):
-                sp_fn = (frontier_mod.sparse_drain if self.sources is None
-                         else frontier_mod.sparse_drain_batched)
-                sssp, self._pend, stats, occ = sp_fn(
+                sssp, self._pend, stats, occ = frontier_mod.sparse_drain(
                     self.state.sssp, self.state.edges, self._out.state,
                     self._pend, num_vertices=self.cfg.num_vertices,
                     caps=self._caps, bucket_width=bw,

@@ -7,7 +7,8 @@ pays a whole-graph wave.  ``frontier_mode="sparse"|"auto"`` selects this
 path instead:
 
   * ``compact_mask`` — cumsum + searchsorted compaction of the [N] frontier
-    into a bounded ascending, -1-padded worklist plus the exact count;
+    (each lane's of an [S, N] one) into a bounded ascending, -1-padded
+    worklist plus the exact count;
   * a **capacity ladder** (``capacity_ladder``, ``edge_budget``) — each wave
     compacts once at the top rung and runs the smallest rung whose vertex
     count, ELL-cell total and live hub-overflow count all fit its budgets,
@@ -17,16 +18,17 @@ path instead:
     row lists its out-neighbours;
   * ``sparse_push_wave`` — the gathered-edges wave over the worklist's OUT
     rows, relaxed by kernel K3 (``frontier_kernel=True``) or its plain
-    version;
+    version; on [S, N] lanes one rectangular [S, E] edge list relaxed by
+    K3's lane form in one call;
   * the sparse relax and delete epochs, mirroring the dense ones' loops,
     and the bucketed drain (``sparse_drain``: the segment pull, then each
     bucket's waves through the ladder); each also returns its summed
-    per-wave occupancy (the ``frontier_occupancy`` obs counter), the
-    ladder's count, which the host reads anyway to pick the rung;
-  * their lane-stack forms (``sparse_*_batched``), which run the one-tree
-    epoch lane by lane, K3 once per lane and wave.  The reference vmaps
-    them, under which ``lax.cond`` runs both ladder branches, and calls
-    them correctness-grade; a K3 lane form is still to come;
+    per-wave occupancy (the ``frontier_occupancy`` obs counter; i64[S] for
+    lanes), the ladder's count, which the host reads anyway to pick the
+    rung.  Each takes one tree ([N]) or a lane stack ([S, N], the batched
+    engine's ``sources=``), as the dense epochs do; the reference's
+    ``sparse_*_batched`` (``jax.vmap`` of the single epochs) are these
+    same functions here;
   * ``wrap_shard_wave``, the sharded engine's sparse waves: each
     partition's live-offer edges compacted and scatter-min'd (no K3), the
     backend's own wave where a partition's count exceeds the cap.
@@ -38,9 +40,13 @@ messages) are bit-identical to the dense path, whatever rung runs.
 
 The reference picks the rung on the device with nested ``lax.cond``; eager
 torch has no device branch, so ``ladder_wave`` reads (count, ELL cells,
-overflow entries) back in ONE host sync per wave and branches on the host.
-With ``converged_loop``'s ``any(frontier)`` read, a sparse wave costs two
-host syncs.
+overflow entries) back in ONE host sync per wave and branches on the host —
+all S lanes' counts in that one read, as one [3, S] tensor.  With
+``converged_loop``'s ``any(frontier)`` read, a sparse wave costs two host
+syncs, whatever S is.  Lanes share the rung: every rung gives the same
+bits, and under the reference's vmap ``lax.cond`` runs both branches
+anyway, so the wave takes the smallest rung every lane fits (one [S, E]
+edge list) and the dense wave for all lanes when any lane misses the top.
 """
 from __future__ import annotations
 
@@ -57,27 +63,53 @@ from repro_torch.core.backends.sliced import (SlicedEllPlanner,
 from repro_torch.core.relax import RelaxStats, converged_loop
 from repro_torch.core.state import INF, EdgePool, SSSPState
 from repro_torch.graphs import csr as csr_mod
-from repro_torch.kernels.relax.gather import (gathered_rows_relax,
-                                              gathered_rows_relax_ref)
+from repro_torch.kernels.relax.gather import (
+    gathered_rows_relax, gathered_rows_relax_lanes,
+    gathered_rows_relax_lanes_ref, gathered_rows_relax_ref)
 
 # ----------------------------------------------------- compaction primitive --
+def _slots(start: int, cap: int, like: torch.Tensor) -> torch.Tensor:
+    """i32 ``start, ..., start + cap - 1`` for each lane of ``like`` (one
+    row a lane: batched ``searchsorted`` wants one per sorted row)."""
+    return torch.arange(start, start + cap, dtype=torch.int32,
+                        device=like.device).expand(
+                            *like.shape[:-1], cap).contiguous()
+
+
+def _lane_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """i32 inclusive prefix sums of [N] or [S, N] integers or bools along
+    the last axis, lane by lane: ONE scan over all S·N entries, each lane's
+    total before it subtracted.  torch's scan along the last axis of a few
+    long rows is slow on the card (a ladder wave's three scans took 2.1 ms
+    at S = 4, N = 2^20 on an H100, one lane's 0.016 ms), so the lanes share
+    one flat scan."""
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=torch.int32)
+    if x.dim() == 1:
+        return flat
+    cs = flat.view(x.shape)
+    before = torch.zeros_like(cs[:, -1])
+    before[1:] = cs[:-1, -1]
+    return cs - before[:, None]
+
+
 def compact_mask(mask: torch.Tensor, *, cap: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compact a bool[N] mask into an ascending i32[cap] vertex worklist:
     the i-th set vertex (1-based) is the first index whose inclusive prefix
     count reaches i (``searchsorted``, left side).  Returns (worklist,
     count): -1-padded, ``count`` the EXACT occupancy ``sum(mask)`` (when it
-    exceeds ``cap`` the worklist is truncated and the caller goes dense)."""
-    cs = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-    count = cs[-1]
-    slots = torch.arange(1, cap + 1, dtype=torch.int32, device=mask.device)
+    exceeds ``cap`` the worklist is truncated and the caller goes dense).
+    An [S, N] mask gives [S, cap] worklists and [S] counts, lane by lane."""
+    cs = _lane_cumsum(mask)
+    count = cs[..., -1]
+    slots = _slots(1, cap, mask)
     wl = torch.searchsorted(cs, slots, out_int32=True)
-    return torch.where(slots <= count, wl, -1), count
+    return torch.where(slots <= count[..., None], wl, -1), count
 
 
 def worklist_to_mask(wl: torch.Tensor, num_vertices: int) -> torch.Tensor:
     """Inverse of ``compact_mask`` for in-capacity masks (-1 padding
-    ignored)."""
+    ignored; [S, cap] worklists give [S, N] masks)."""
     return relax.mark_vertices(wl.clamp(0, num_vertices - 1), wl >= 0,
                                num_vertices)
 
@@ -173,33 +205,38 @@ def sparse_push_wave(dist: torch.Tensor, parent: torch.Tensor,
     exactly the worklist rows' occupied cells; the frontier-live overflow
     entries are compacted the same way through ``ocs`` into ``ocap`` slots.
     Both lanes concatenate into ONE edge list relaxed by K3 (``use_kernel``)
-    or its plain version.  The caller (``ladder_wave``) guarantees both
-    budgets fit."""
-    dev = dist.device
-    c = wl.shape[0]
+    or its plain version.  For [S, N] trees (``wl``, ``ecs``, ``ocs`` one
+    row a lane) each lane searches its own row, and the [S, ecap + ocap]
+    edge list goes to K3's lane form in one call.  The caller
+    (``ladder_wave``) guarantees both budgets fit every lane."""
+    c = wl.shape[-1]
     valid = wl >= 0
     rows = wl.clamp(0, st.fill.shape[0] - 1)
     rk = torch.where(valid, st.fill[rows], 0)
     excl = ecs - rk                               # exclusive degree prefix
-    j = torch.arange(ecap, dtype=torch.int32, device=dev)
+    j = _slots(0, ecap, wl)
     r = torch.searchsorted(ecs, j, right=True).clamp(0, c - 1)
-    evalid = j < ecs[-1]
-    kk = j - excl[r]
-    src = rows[r]
+    evalid = j < ecs[..., -1:]
+    kk = j - excl.gather(-1, r)
+    src = rows.gather(-1, r)
     pos = (st.base[src] + kk).clamp(0, st.flat_w.shape[0] - 1)
     e_src, e_nbr, e_w, e_val = src, st.flat_idx[pos], st.flat_w[pos], evalid
     if ocap and st.ow.shape[0]:
         # overflow lane (osrc = destination / scatter target, odst = source
         # row under the sidecar's swapped roles); ocs already folds in the
         # frontier filter, so the selected entries are live by construction
-        oslots = torch.arange(1, ocap + 1, dtype=torch.int32, device=dev)
+        oslots = _slots(1, ocap, wl)
         osel = torch.searchsorted(ocs, oslots).clamp(0, st.ow.shape[0] - 1)
-        e_src = torch.cat([e_src, st.odst[osel]])
-        e_nbr = torch.cat([e_nbr, st.osrc[osel]])
-        e_w = torch.cat([e_w, st.ow[osel]])
-        e_val = torch.cat([e_val, oslots <= ocs[-1]])
-    fn = gathered_rows_relax if use_kernel else gathered_rows_relax_ref
-    best, arg = fn(dist[e_src], e_src, e_nbr, e_w, e_val,
+        e_src = torch.cat([e_src, st.odst[osel]], -1)
+        e_nbr = torch.cat([e_nbr, st.osrc[osel]], -1)
+        e_w = torch.cat([e_w, st.ow[osel]], -1)
+        e_val = torch.cat([e_val, oslots <= ocs[..., -1:]], -1)
+    if wl.dim() == 1:
+        fn = gathered_rows_relax if use_kernel else gathered_rows_relax_ref
+    else:
+        fn = (gathered_rows_relax_lanes if use_kernel
+              else gathered_rows_relax_lanes_ref)
+    best, arg = fn(dist.gather(-1, e_src.long()), e_src, e_nbr, e_w, e_val,
                    num_rows=num_vertices)
     improved = best < dist
     return (torch.where(improved, best, dist),
@@ -210,37 +247,41 @@ def ladder_wave(dist: torch.Tensor, parent: torch.Tensor,
                 frontier: torch.Tensor, st: SlicedEllState, edges: EdgePool,
                 *, caps: tuple[int, ...], num_vertices: int,
                 use_kernel: bool = False
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           int | np.ndarray]:
     """One wave through the capacity ladder: compact once at the top rung,
     run the smallest rung whose vertex count, ELL cell total AND live
     hub-overflow count all fit its budgets, else the exact dense
     ``relax_round`` over the pool.  The three counts come back to the host
-    in one read.  All branches are bit-identical: the rung is a cost
-    choice.  Returns (dist, parent, improved, the frontier's count)."""
+    in one read (a [3, S] tensor for [S, N] lanes, which take the smallest
+    rung every lane fits, else the dense wave together).  All branches are
+    bit-identical: the rung is a cost choice.  Returns (dist, parent,
+    improved, the frontier's count: i64, or i64[S] for lanes)."""
     wl, count = compact_mask(frontier, cap=caps[-1])
     rows = wl.clamp(0, st.fill.shape[0] - 1)
-    ecs = torch.cumsum(torch.where(wl >= 0, st.fill[rows], 0), 0,
-                       dtype=torch.int32)
-    olive = frontier[st.odst] & (st.ow < INF)
-    ocs = torch.cumsum(olive.to(torch.int32), 0, dtype=torch.int32)
-    count_h, etotal, ocnt = torch.stack([count, ecs[-1], ocs[-1]]).tolist()
+    ecs = _lane_cumsum(torch.where(wl >= 0, st.fill[rows], 0))
+    ocs = _lane_cumsum(frontier[..., st.odst] & (st.ow < INF))
+    count_h, etotal, ocnt = np.asarray(torch.stack(
+        [count, ecs[..., -1], ocs[..., -1]]).tolist())
     for c in caps:
         eb = edge_budget(c)
-        if count_h <= c and etotal <= eb and ocnt <= eb:
+        if np.all((count_h <= c) & (etotal <= eb) & (ocnt <= eb)):
             return (*sparse_push_wave(
-                dist, parent, wl[:c], ecs[:c], ocs, st, ecap=eb, ocap=eb,
-                num_vertices=num_vertices, use_kernel=use_kernel), count_h)
+                dist, parent, wl[..., :c], ecs[..., :c].contiguous(), ocs,
+                st, ecap=eb, ocap=eb, num_vertices=num_vertices,
+                use_kernel=use_kernel), count_h)
     return (*relax.relax_round(dist, parent, edges, frontier,
                                num_vertices=num_vertices), count_h)
 
 
 def _ladder(st: SlicedEllState, edges: EdgePool, *, caps: tuple[int, ...],
             num_vertices: int, use_kernel: bool
-            ) -> tuple[relax.Wave, list[int]]:
+            ) -> tuple[relax.Wave, list]:
     """A ladder wave for the converged / drain loops, and the list each
     wave's occupancy count is appended to (the epoch's occupancy is its
-    sum)."""
-    counts: list[int] = []
+    sum, ``_occupancy``; a lane whose loop has finished has an empty
+    frontier and adds 0)."""
+    counts: list = []
 
     def wave(dist, parent, frontier):
         dist, parent, improved, count = ladder_wave(
@@ -252,37 +293,45 @@ def _ladder(st: SlicedEllState, edges: EdgePool, *, caps: tuple[int, ...],
     return wave, counts
 
 
+def _occupancy(counts: list, like: torch.Tensor) -> int | np.ndarray:
+    """The waves' summed counts: i64, or i64[S] for ``like``'s lanes."""
+    return sum(counts, relax.no_rounds(like))
+
+
 # ------------------------------------------------------------ sparse epochs --
 def sparse_relax_until_converged(
     sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     frontier: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
     use_kernel: bool = False,
-) -> tuple[SSSPState, RelaxStats, int]:
+) -> tuple[SSSPState, RelaxStats, int | np.ndarray]:
     """Sparse rendering of ``relax.relax_until_converged``: the same
-    converged-loop driver and [N]-mask carry, each wave through the
-    capacity ladder.  Also returns the summed per-wave occupancy."""
+    converged-loop driver and mask carry ([N], or [S, N] lanes from an [N]
+    ADD frontier they share), each wave through the capacity ladder.  Also
+    returns the summed per-wave occupancy (per lane)."""
     wave, counts = _ladder(st, edges, caps=caps, num_vertices=num_vertices,
                            use_kernel=use_kernel)
     dist, parent, rounds, msgs = converged_loop(
         sssp.dist, sssp.parent, frontier, wave)
     return (SSSPState(dist=dist, parent=parent, source=sssp.source),
-            RelaxStats(rounds=rounds, messages=msgs), sum(counts))
+            RelaxStats(rounds=rounds, messages=msgs),
+            _occupancy(counts, dist))
 
 
 def sparse_invalidate_and_recompute(
     sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     seed: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
     use_doubling: bool = True, use_kernel: bool = False,
-) -> tuple[SSSPState, del_mod.DeleteStats, int]:
+) -> tuple[SSSPState, del_mod.DeleteStats, int | np.ndarray]:
     """Sparse deletion epoch — ``delete.invalidate_and_recompute``'s
-    structure (same marking, same dense bulk pull over the pool's in-edges,
-    which the OUT sidecar cannot serve and which runs once per epoch); only
-    the push recompute waves run through the ladder, whose summed
-    occupancy comes back third."""
-    if not bool(seed.any()):
-        return sssp, del_mod.empty_delete_stats(seed), 0
+    structure (same marking, same gating of a lane with no seed, same dense
+    bulk pull over the pool's in-edges, which the OUT sidecar cannot serve
+    and which runs once per epoch); only the push recompute waves run
+    through the ladder, whose summed occupancy comes back third."""
+    any_seed = relax.host_flags(seed)
+    if not np.any(any_seed):
+        return sssp, del_mod.empty_delete_stats(seed), relax.no_rounds(seed)
     aff, inv_rounds, dist, parent = del_mod.invalidate(
-        sssp, seed, use_doubling=use_doubling)
+        sssp, seed, use_doubling=use_doubling, gate=any_seed)
     dist, parent, improved = del_mod.pull_once(dist, parent, edges, aff,
                                                num_vertices)
     state, stats, occ = sparse_relax_until_converged(
@@ -290,7 +339,7 @@ def sparse_invalidate_and_recompute(
         improved, num_vertices=num_vertices, caps=caps,
         use_kernel=use_kernel)
     return state, del_mod.recompute_stats(aff, inv_rounds, improved, stats,
-                                          True), occ
+                                          any_seed), occ
 
 
 def sparse_drain(sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
@@ -298,7 +347,7 @@ def sparse_drain(sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
                  caps: tuple[int, ...], bucket_width: float,
                  use_kernel: bool = False
                  ) -> tuple[SSSPState, buckets.PendingState, RelaxStats,
-                            int]:
+                            int | np.ndarray]:
     """Sparse bucketed drain: ``buckets.run_drain`` with each bucket's
     active mask compacted through the ladder.  The pull is
     ``delete.pull_once`` (segment-style, the dense pool's in-edges), as in
@@ -314,74 +363,15 @@ def sparse_drain(sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     dist, parent, stats = buckets.run_drain(
         sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
         wave=wave, pull_wave=pull_wave)
-    return (*buckets.drained(sssp, pend, dist, parent), stats, sum(counts))
+    return (*buckets.drained(sssp, pend, dist, parent), stats,
+            _occupancy(counts, dist))
 
 
-# ------------------------------------------------ lane-stack renderings --
-def _lane(sssp: SSSPState, i: int) -> SSSPState:
-    return SSSPState(dist=sssp.dist[i], parent=sssp.parent[i],
-                     source=sssp.source[i])
-
-
-def _stack(states: list[SSSPState]) -> SSSPState:
-    return SSSPState(dist=torch.stack([s.dist for s in states]),
-                     parent=torch.stack([s.parent for s in states]),
-                     source=torch.stack([s.source for s in states]))
-
-
-def _stack_stats(stats: list) -> tuple:
-    """Per-lane stats, field by field: host rounds into an i64[S] array,
-    device counts into an [S] tensor."""
-    return type(stats[0])(*(
-        torch.stack(col) if isinstance(col[0], torch.Tensor)
-        else np.asarray(col, np.int64) for col in zip(*stats)))
-
-
-def _occupancy(out: list) -> np.ndarray:
-    """The lanes' summed occupancies (the last item of each lane's result)
-    as an i64[S] array."""
-    return np.asarray([o[-1] for o in out], np.int64)
-
-
-def sparse_relax_batched(sssp: SSSPState, edges: EdgePool,
-                         st: SlicedEllState, frontier: torch.Tensor, **kw
-                         ) -> tuple[SSSPState, RelaxStats, np.ndarray]:
-    """``sparse_relax_until_converged`` lane by lane (the shared ADD
-    frontier in each); occupancy per lane."""
-    out = [sparse_relax_until_converged(_lane(sssp, i), edges, st, frontier,
-                                        **kw)
-           for i in range(sssp.dist.shape[0])]
-    return (_stack([o[0] for o in out]), _stack_stats([o[1] for o in out]),
-            _occupancy(out))
-
-
-def sparse_delete_batched(sssp: SSSPState, edges: EdgePool,
-                          st: SlicedEllState, seed: torch.Tensor, **kw
-                          ) -> tuple[SSSPState, del_mod.DeleteStats,
-                                     np.ndarray]:
-    """``sparse_invalidate_and_recompute`` lane by lane, each lane with its
-    own seed; occupancy per lane."""
-    out = [sparse_invalidate_and_recompute(_lane(sssp, i), edges, st,
-                                           seed[i], **kw)
-           for i in range(sssp.dist.shape[0])]
-    return (_stack([o[0] for o in out]), _stack_stats([o[1] for o in out]),
-            _occupancy(out))
-
-
-def sparse_drain_batched(sssp: SSSPState, edges: EdgePool,
-                         st: SlicedEllState, pend: buckets.PendingState,
-                         **kw) -> tuple[SSSPState, buckets.PendingState,
-                                        RelaxStats, np.ndarray]:
-    """``sparse_drain`` lane by lane, each lane with its own pending set;
-    occupancy per lane."""
-    out = [sparse_drain(_lane(sssp, i), edges, st,
-                        buckets.PendingState(pend.push[i], pend.pull[i]),
-                        **kw)
-           for i in range(sssp.dist.shape[0])]
-    return (_stack([o[0] for o in out]),
-            buckets.PendingState(torch.stack([o[1].push for o in out]),
-                                 torch.stack([o[1].pull for o in out])),
-            _stack_stats([o[2] for o in out]), _occupancy(out))
+# the reference's vmapped lane-stack entry points: the epochs above take
+# [S, N] lanes themselves
+sparse_relax_batched = sparse_relax_until_converged
+sparse_delete_batched = sparse_invalidate_and_recompute
+sparse_drain_batched = sparse_drain
 
 
 # ------------------------------------------------------------- sharded wave --

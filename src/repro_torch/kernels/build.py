@@ -38,20 +38,20 @@ class Built:
     log: str         # nvcc/ptxas output (registers, spills) of that build
 
 
-def check_args(kernel: str, **args: tuple[torch.Tensor, torch.dtype]
-               ) -> torch.device:
+def check_args(kernel: str, *, ndim: int = 1,
+               **args: tuple[torch.Tensor, torch.dtype]) -> torch.device:
     """Raise ``ValueError`` unless every ``name=(tensor, dtype)`` is a
-    contiguous 1-D tensor of that dtype and all lie on one CUDA device;
-    returns the device."""
+    contiguous ``ndim``-D tensor of that dtype and all lie on one CUDA
+    device; returns the device."""
     dev = next(iter(args.values()))[0].device
     for name, (t, dtype) in args.items():
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{kernel}: tensors must share one CUDA device; "
                              f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
             raise ValueError(
-                f"{kernel}: {name} expected a contiguous 1-D {dtype}; got "
-                f"{t.dtype} of shape {tuple(t.shape)}")
+                f"{kernel}: {name} expected a contiguous {ndim}-D {dtype}; "
+                f"got {t.dtype} of shape {tuple(t.shape)}")
     return dev
 
 

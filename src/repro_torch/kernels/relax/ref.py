@@ -32,6 +32,10 @@ K3, ``gathered_rows_relax_ref``: the counterpart of
 ``repro.kernels.relax.gather.gathered_rows_relax_ref`` — candidates
 ``src_dist + w`` scatter-min'd into ``nbr`` rows, masked slots dropped,
 ``arg`` = the smallest ``src_ids`` attaining the row min (INT_MAX if none).
+Its lane form ``gathered_rows_relax_lanes_ref`` takes ``[S, E]`` edge lists
+and gives ``[S, R]``, lane for lane what ``jax.vmap`` of the reference
+gives: the CPU route of the batched sparse wave and the card's oracle for
+K3's lane form.
 """
 from __future__ import annotations
 
@@ -196,3 +200,23 @@ def gathered_rows_relax_ref(src_dist: torch.Tensor, src_ids: torch.Tensor,
                      device=cand.device)
     arg.scatter_reduce_(0, tgt, key, "amin")
     return best[:num_rows], arg[:num_rows]
+
+
+def gathered_rows_relax_lanes_ref(src_dist: torch.Tensor,
+                                  src_ids: torch.Tensor, nbr: torch.Tensor,
+                                  w: torch.Tensor, mask: torch.Tensor, *,
+                                  num_rows: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """S lanes' ``[S, E]`` edge lists, each into its own ``num_rows`` rows:
+    one ``gathered_rows_relax_ref`` over the ``S * E`` slots with lane s's
+    rows at ``s * num_rows + nbr``.  A min and a smallest-id argmin do not
+    depend on the order of the slots, so each lane is bit-identical to a
+    single-lane call on it.  Returns (best f32[S, R], arg i32[S, R])."""
+    lanes = src_dist.shape[0]
+    off = (torch.arange(lanes, dtype=torch.int64, device=nbr.device)
+           * num_rows)[:, None]
+    best, arg = gathered_rows_relax_ref(
+        src_dist.reshape(-1), src_ids.reshape(-1),
+        (nbr + off).reshape(-1), w.reshape(-1), mask.reshape(-1),
+        num_rows=lanes * num_rows)
+    return best.view(lanes, num_rows), arg.view(lanes, num_rows)

@@ -1,12 +1,13 @@
 """The port's CUDA kernels on the card: kernels K1 (``ellpack_relax``, both
 variants), K2
 (``fused_sliced_relax``), K3 (``gathered_rows_relax``), K4 (``spmm_ell``)
-and K5 (``embedding_bag``) against their plain torch versions, K1's and
-K2's lane forms (S trees in one launch) against S single-lane kernel calls
-and the lane plain versions, and engines on the kernels against the same
-engines on the plain versions (dense ELL on K1; sliced on K2 and on K1 per
-run of slices; the sparse frontier on K3; batched multi-source and
-bucketed engines on the lane forms), and observability on the kernels'
+and K5 (``embedding_bag``) against their plain torch versions, K1's, K2's
+and K3's lane forms (S trees in one launch sequence) against S single-lane
+kernel calls and the lane plain versions, and engines on the kernels
+against the same engines on the plain versions (dense ELL on K1; sliced on
+K2 and on K1 per run of slices; the sparse frontier on K3; batched
+multi-source and bucketed engines on the lane forms, the batched sparse
+frontier on K3's), and observability on the kernels'
 engines (bit-identical to it off), the card's histogram bucketing and the
 one-copy counter snapshot; K1 on each partition's block of the sharded
 engine's ELL and sliced layouts, and the sharded engine (P = 4 partitions
@@ -39,9 +40,11 @@ from repro_torch.kernels.embed_bag.embed_bag import embedding_bag
 from repro_torch.kernels.embed_bag.ops import bag_lookup
 from repro_torch.kernels.embed_bag.ref import embedding_bag_ref
 from repro_torch.kernels.relax.fused import ChunkTable, fused_sliced_relax
-from repro_torch.kernels.relax.gather import gathered_rows_relax
+from repro_torch.kernels.relax.gather import (gathered_rows_relax,
+                                              gathered_rows_relax_lanes)
 from repro_torch.kernels.relax.ref import (ellpack_relax_ref,
                                            fused_sliced_relax_ref,
+                                           gathered_rows_relax_lanes_ref,
                                            gathered_rows_relax_ref,
                                            lane_minor_ref, lane_minor_shape)
 from repro_torch.kernels.relax.relax import (LaneMinorOnce, ellpack_relax,
@@ -564,6 +567,99 @@ def test_k2_k3_refuse_wrong_dtype_on_the_card(cuda):
         gathered_rows_relax(*args, num_rows=8)
 
 
+def _k3_lanes(seed, lanes, e, n, device):
+    """[S, E] edge lists with ties: lane 1 all masked, lane 2 every slot on
+    one hub row, lane 3 a copy of lane 0 (the same rows and keys in two
+    lanes), the others drawn apart."""
+    rows = []
+    for t in range(lanes):
+        rows.append(rows[0] if t == 3 else _k3_case(
+            seed + t, e, n, True, 0.0 if t == 1 else 0.8, device,
+            hub=t == 2))
+    return [torch.stack(col).contiguous() for col in zip(*rows)]
+
+
+def _k3_lanes_equal(args, n):
+    """One lane-form call (counted as a lane launch, not a single one)
+    equals the lane plain version and, lane by lane, a single-lane kernel
+    call on that lane's edge list."""
+    before = (gathered_rows_relax.launches,
+              gathered_rows_relax.lane_launches)
+    best, arg = gathered_rows_relax_lanes(*args, num_rows=n)
+    torch.cuda.synchronize()
+    assert (gathered_rows_relax.launches,
+            gathered_rows_relax.lane_launches) == (before[0], before[1] + 1)
+    assert best.shape == arg.shape == (args[0].shape[0], n)
+    rb, ra = gathered_rows_relax_lanes_ref(*args, num_rows=n)
+    assert torch.equal(best, rb) and torch.equal(arg, ra)
+    for t in range(args[0].shape[0]):
+        b1, a1 = gathered_rows_relax(*(x[t] for x in args), num_rows=n)
+        assert torch.equal(best[t], b1) and torch.equal(arg[t], a1)
+
+
+K3_LANES = [1, 3, 4, 5, 8, 9, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", K3_LANES)
+@pytest.mark.parametrize("e,n", [(0, 12), (85, 40), (300, 1), (4096, 5000),
+                                 (16_384, 1 << 20)],
+                         ids=["E=0", "small", "R=1", "mid",
+                              "the sparse path's shape"])
+def test_k3_lanes_match_plain_version_and_single_lanes(cuda, lanes, e, n):
+    """K3's lane form on ragged lanes (an all-masked lane, a hub row, two
+    equal lanes), E = 0, R = 1 and the sparse path's E = 16,384 over 2^20
+    rows, twice in a row: bit-identical to the lane plain version and to S
+    single-lane calls."""
+    args = _k3_lanes(lanes + e + n, lanes, e, n, cuda)
+    _k3_lanes_equal(args, n)
+    _k3_lanes_equal(args, n)
+
+
+@pytest.mark.cuda
+def test_k3_lanes_in_a_cuda_graph(cuda):
+    """A lane-form call captured in a CUDA graph, replayed on new inputs
+    written in place: each replay equals the lane plain version."""
+    n = 5000
+    args = _k3_lanes(20, 5, 4096, n, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gathered_rows_relax_lanes(*args, num_rows=n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        best, arg = gathered_rows_relax_lanes(*args, num_rows=n)
+    for seed in (21, 22):
+        for t, new in zip(args, _k3_lanes(seed, 5, 4096, n, cuda)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        rb, ra = gathered_rows_relax_lanes_ref(*args, num_rows=n)
+        assert torch.equal(best, rb) and torch.equal(arg, ra)
+
+
+@pytest.mark.cuda
+def test_k3_lanes_refuse_bad_arguments(cuda):
+    """Mismatched [S, E] shapes, a wrong dtype, 1-D arrays and tensors
+    split between the CPU and the card raise before any launch."""
+    args = _k3_lanes(30, 3, 64, 50, cuda)
+    before = gathered_rows_relax.lane_launches
+    short = [*args[:3], args[3][:, :-1].contiguous(), args[4]]
+    with pytest.raises(ValueError, match="one shape"):
+        gathered_rows_relax_lanes(*short, num_rows=50)
+    with pytest.raises(ValueError, match="src_ids"):
+        gathered_rows_relax_lanes(args[0], args[1].long(), *args[2:],
+                                  num_rows=50)
+    with pytest.raises(ValueError, match="2-D"):
+        gathered_rows_relax_lanes(*(x[0] for x in args), num_rows=50)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gathered_rows_relax_lanes(args[0].cpu(), *args[1:], num_rows=50)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gathered_rows_relax_lanes(*args[:4], args[4].cpu(), num_rows=50)
+    assert gathered_rows_relax.lane_launches == before
+
+
 def _same_bits(got, want):
     """The same NaN positions and equal bits everywhere else."""
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -866,6 +962,32 @@ def test_batched_engines_on_lane_forms_match_plain_version(
                       batch_deletions=True, **plain)
     want = ref.ingest_log(log)
     assert (ellpack_relax.launches, fused_sliced_relax.launches) == before
+    _same_lane_runs(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["rounds", "buckets"])
+def test_batched_sparse_engine_on_k3_lane_form_matches_plain_version(
+        cuda, schedule):
+    """Three lanes on the sparse frontier with no kernel flag launch K3's
+    lane form and never the single-lane kernel, and equal the same engine
+    on the plain version, lane for lane and counter for counter."""
+    n, cap, log = _rmat_stream()
+    kw = dict(frontier_mode="sparse", frontier_cap=64, sources=(3, 17, 40))
+    if schedule == "buckets":
+        kw.update(wave_schedule="buckets", bucket_width=1.0)
+    before = (gathered_rows_relax.launches,
+              gathered_rows_relax.lane_launches)
+    eng = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, **kw)
+    got = eng.ingest_log(log)
+    assert gathered_rows_relax.launches == before[0]
+    assert gathered_rows_relax.lane_launches > before[1]
+    before = gathered_rows_relax.lane_launches
+    ref = make_engine(num_vertices=n, edge_capacity=cap, source=3,
+                      batch_deletions=True, frontier_kernel=False, **kw)
+    want = ref.ingest_log(log)
+    assert gathered_rows_relax.lane_launches == before
     _same_lane_runs(got, want)
 
 

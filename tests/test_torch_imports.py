@@ -1,8 +1,8 @@
 """Import discipline of the port: ``repro_torch`` and every submodule import
 with ``jax`` and ``repro`` blocked, and no file of the port (nor
-``chip_smoke.py``, ``bench_lane_forms.py`` or the port's examples)
-imports either; the engine's default device is CUDA with no silent CPU
-fallback."""
+``chip_smoke.py``, ``bench_lane_forms.py``, ``bench_sparse_lanes.py`` or
+the port's examples) imports either; the engine's default device is CUDA
+with no silent CPU fallback."""
 import ast
 import os
 import subprocess
@@ -106,6 +106,7 @@ def _imported_modules(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
                             ROOT / "bench_lane_forms.py",
+                            ROOT / "bench_sparse_lanes.py",
                             ROOT / "examples" / "torch_streaming_sssp.py",
                             ROOT / "examples"
                             / "torch_sharded_streaming_sssp.py",

@@ -582,8 +582,7 @@ def test_obs_adds_no_host_read(monkeypatch, sources, mode, schedule):
         eng = _port(n, cap, observability=obs, **kw, **port_only)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
-            runs.append(_count_reads(monkeypatch, eng, log,
-                                     lane_vectors=mode == "dense"))
+            runs.append(_count_reads(monkeypatch, eng, log))
     (off, off_counts), (on, on_counts) = runs
     assert on == off and sum(on) > 0
     assert on_counts == off_counts

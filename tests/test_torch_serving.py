@@ -20,7 +20,10 @@ wave's flags back (``relax.host_flags``), so ingest does read.  In its
 place, ``test_batched_ingest_reads_one_flag_vector_per_wave`` counts the
 reads: every one is a single read of all S lanes' flags, so a batched
 engine makes as many as the busiest of its lanes' single-source engines
-needs in each epoch, never their sum.
+needs in each epoch, never their sum; and
+``test_batched_sparse_ingest_reads_lane_vectors`` those of the sparse
+frontier, whose waves also read all lanes' ladder counts as one [3, S]
+tensor.
 
 The JAX engines run ``sliced_fused=False`` and ``frontier_kernel=False``.
 Inputs are made from seeds with numpy.  Tolerance: 0.
@@ -200,10 +203,10 @@ def _count_reads(monkeypatch, eng, log, lane_vectors=True):
     counting host reads of tensors (the ``READS`` methods) and the reads
     made through ``relax.host``; a ``relax.host`` call counts as one read,
     whatever it calls inside, and with ``lane_vectors`` reads the flags of
-    all the engine's lanes (the sparse batched epochs read lane by lane).
-    Returns ([reads per epoch], the two totals).  Also used by
+    all the engine's lanes.  Returns ([reads per epoch], the two totals and
+    the shapes of the tensors read outside ``relax.host``).  Also used by
     test_torch_obs.py: observability must add no read."""
-    counts = {"any": 0, "flags": 0}
+    counts = {"any": 0, "flags": 0, "shapes": []}
     inside = [False]
     for meth in READS:
         real = getattr(torch.Tensor, meth)
@@ -211,6 +214,7 @@ def _count_reads(monkeypatch, eng, log, lane_vectors=True):
         def counted(self, *a, _real=real, **k):
             if not inside[0]:
                 counts["any"] += 1
+                counts["shapes"].append(tuple(self.shape))
             return _real(self, *a, **k)
 
         monkeypatch.setattr(torch.Tensor, meth, counted)
@@ -262,6 +266,34 @@ def test_batched_ingest_reads_one_flag_vector_per_wave(monkeypatch,
     per_lane = np.asarray(singles)
     assert (np.asarray(got) >= per_lane.max(0)).all()
     assert (np.asarray(got) <= per_lane.sum(0)).all()
+    assert sum(got) < per_lane.sum()
+
+
+@pytest.mark.parametrize("schedule", ["rounds", "buckets"])
+def test_batched_sparse_ingest_reads_lane_vectors(monkeypatch, schedule):
+    """The sparse frontier on a batched engine: every ``relax.host`` read is
+    one [S] flag vector and every other read is a ladder wave's one [3, S]
+    read of all lanes' counts; each epoch makes at least as many reads as
+    the busiest lane's single-source engine, and the stream fewer than all
+    of theirs together.  A small cap sends some waves to the dense
+    fallback, which reads the counts too."""
+    kw = dict(relax_backend="segment", frontier_mode="sparse",
+              frontier_cap=16, batch_deletions=True)
+    if schedule == "buckets":
+        kw.update(wave_schedule="buckets", bucket_width=1.0)
+    n, cap, log = STREAM
+    bat = SSSPDelEngine(EngineConfig(n, cap, 3, sources=SOURCES,
+                                     device="cpu", **kw))
+    got, counts = _count_reads(monkeypatch, bat, log)
+    assert counts["flags"] > 0 and counts["any"] > counts["flags"]
+    assert counts["any"] == counts["flags"] + len(counts["shapes"])
+    assert set(counts["shapes"]) == {(3, len(SOURCES))}
+    singles = []
+    for s in SOURCES:
+        one = SSSPDelEngine(EngineConfig(n, cap, s, device="cpu", **kw))
+        singles.append(_count_reads(monkeypatch, one, log)[0])
+    per_lane = np.asarray(singles)
+    assert (np.asarray(got) >= per_lane.max(0)).all()
     assert sum(got) < per_lane.sum()
 
 
