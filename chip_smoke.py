@@ -110,17 +110,20 @@ Phases (any failure raises and exits non-zero):
      form);
   12. the serving path with observability: phase 8's cut of the ER stream
      lifted into a ``ServingTrace`` and replayed (``replay_trace``) on the
-     dense ELL block (K1), observability off and then on with a default
-     watchdog armed — bit-identical to each other and to phase 3
-     at every query (dist, parent, rounds, messages); the snapshot's views
+     dense ELL block (K1), observability on with a default watchdog
+     armed — bit-identical to phase 3 at every query (dist, parent,
+     rounds, messages), Dijkstra at the end; the snapshot's views
      agree (rounds and messages, span counts from the Chrome trace read
      back against the epoch and rebuild counters, histogram totals against
      their counters, the Prometheus text round trip), the watchdog stays
-     silent; the on / off events/s ratio (printed, not held), the
-     report's latency percentiles, churn and cold/warm split, and the
-     snapshot's time; the same trace written as a chunked v2 file (chunks
-     of 2^20 events) and replayed through ``open_trace``: dist equal at
-     every query, Dijkstra at the end; phase 8's RMAT(20) cut under auto
+     silent; the report's latency percentiles, churn and cold/warm split,
+     and the snapshot's time; the same trace written as a chunked v2 file
+     (chunks of 2^20 events) and replayed through ``open_trace`` with
+     observability off: dist equal to phase 3's at every query, Dijkstra
+     at the end (the ER leg's replays were three, obs off and on from
+     memory and the file; the obs-off one now is the file's, so the ER
+     on / off ratio is not printed: the sparse leg keeps it); phase 8's
+     RMAT(20) cut under auto
      and buckets (K2), observability on: equal to phase 8's run at every
      query, non-zero pending occupancy, ``drain_waves`` equal to the
      drains' waves; phase 6's localized stream, sparse (K3), observability
@@ -231,15 +234,28 @@ Phases (any failure raises and exits non-zero):
      so it runs the epoch's rounds), the measured peak above the
      arguments beside the predicted ``temp_bytes`` and the roofline share
      ``bound_s / measured`` (printed, not held);
+  18. the straggler bound (``max_rounds``, DESIGN.md §7): the ER
+     stream's edges as phase 3's dense ELL block (K1), the RMAT stream's
+     as phase 4's sliced layout (K2), phase 6's base graph as its OUT
+     sidecar (K3); on each, the ADD epoch from the source over the whole
+     edge set, for one source and for 4 lanes (phase 9's sources on the
+     streams, phase 6c's on the base: the lane forms), unbounded, then
+     with ``max_rounds`` 1 and 4 re-issued with ``dist < dist before`` as
+     the frontier until nothing improves: at most ``max_rounds`` waves
+     an issue, more than one issue, the end bit-identical to the
+     unbounded epoch, and under bound 4 every issue on the kernel
+     bit-identical to the same issue on the plain versions; issues, waves
+     and launches printed;
   11. the whole script's time, the card line, a JSON ``kernels`` line (every kernel with ``ms``,
      ``device_ms``, ``host_us``, ``bound_ms`` and ``launches``; K1, K2
      and K3 with a ``lanes`` record of their lane forms (K3's from phase
      6c, with phase 10's launches as ``cross_check_launches``); K1-K3 with
-     ``serving_launches``, their counts in phase 12's legs; K1 with
+     ``serving_launches``, their counts in phase 12's legs, and a
+     ``bounded`` record of phase 18; K1 with
      ``sharded_launches``, its count in phase 13's full-width leg, a
      ``sharded`` record, and a ``sharded_lanes`` record of phase 14), and
      as the last line ``{"ok": true, "device": {...}}``.  Phases run in
-     the order 1-6, 8-10, 12, 13, 14, 15, 16, 17, 7.
+     the order 1-6, 8-10, 18, 12, 13, 14, 15, 16, 17, 7.
 
 It exits non-zero before printing any result when torch sees no CUDA
 device.  It imports nothing of JAX and nothing of the JAX package.
@@ -2010,36 +2026,27 @@ def serving_legs(torch, ctx) -> dict:
     served = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        # ---- ER on K1: obs off, then on (watchdog armed); then chunked
+        # ---- ER on K1: obs on (watchdog armed) from memory, then obs off
+        # from a chunked v2 file
         c = ctx["er"]
         n, e, source = c["n"], c["e"], c["sources"][0]
         log, want, _ = leg_stream(c)
         trace = ServingTrace.from_log(log)
-        reps = {}
-        for obs in (False, True):
-            extra = dict(observability=True, obs_watchdog=WatchdogConfig()
-                         ) if obs else {}
-            eng = engine(n, e, source, relax_backend="ellpack", **extra)
-            rep, seen, counts = replay(
-                eng, trace, f"ER dense-ELL (K1), obs {'on' if obs else 'off'}")
-            assert counts[0] > 0, "[12] the ER leg never launched K1"
-            same_answers(f"[12] ER obs={obs}", seen, want)
-            reps[obs] = rep
+        eng = engine(n, e, source, relax_backend="ellpack",
+                     observability=True, obs_watchdog=WatchdogConfig())
+        on, seen, counts = replay(eng, trace, "ER dense-ELL (K1), obs on")
+        assert counts[0] > 0, "[12] the ER leg never launched K1"
+        same_answers("[12] ER obs on", seen, want)
         served["ellpack_relax"] = counts[0]
         eng.obs.watchdog.stop()
         assert eng.obs.watchdog.warnings == 0, \
             "[12] the watchdog spoke on a healthy run"
         snap, snap_s = snapshot_views(torch, eng, tmp)
         assert "watchdog_warnings" not in snap["counters"]
-        on, off = reps[True], reps[False]
         cw = on.cold_warm
-        print(f"[12] ER obs on / off: {on.events_per_s:.0f} / "
-              f"{off.events_per_s:.0f} topology events/s, ratio "
-              f"{on.events_per_s / off.events_per_s:.3f} (printed, not "
-              f"held: host walls drift between runs); bit-identical at all "
-              f"{on.queries} queries (dist, parent, rounds, messages, and "
-              f"equal to phase 3's run)")
-        print(f"[12] ER ServingReport (obs on): latency p50/p95/p99 "
+        print(f"[12] ER ServingReport (obs on, equal to phase 3's run at "
+              f"all {on.queries} queries in dist, parent, rounds and "
+              f"messages): latency p50/p95/p99 "
               f"{on.latency_s['p50'] * 1e3:.3f}/"
               f"{on.latency_s['p95'] * 1e3:.3f}/"
               f"{on.latency_s['p99'] * 1e3:.3f} ms, churn mean "
@@ -2050,25 +2057,27 @@ def serving_legs(torch, ctx) -> dict:
               f"{cw['warm_p50_ms']:.3f}/{cw['warm_p99_ms']:.3f} ms); "
               f"metrics_snapshot {snap_s * 1e3:.3f} ms; spans "
               f"{snap['spans']}; watchdog silent")
-        del eng, reps, on, off, snap
+        del eng, on, snap, seen
         path = tmp / "er.trace"
         t0 = time.perf_counter()
         trace.save(str(path), chunk_events=1 << 20)   # ChunkedTraceWriter
         write_s = time.perf_counter() - t0
-        eng = engine(n, e, source, relax_backend="ellpack",
-                     observability=True)
+        eng = engine(n, e, source, relax_backend="ellpack")
         with open_trace(str(path)) as reader:
             chunks = reader.n_chunks
-            rep, seen, counts = replay(eng, reader, f"ER from the v2 file "
-                                       f"({chunks} chunks of 2^20 events)")
-        same_answers("[12] ER chunked", seen, want, stats=False)
+            _, seen, counts = replay(eng, reader, f"ER from the v2 file "
+                                     f"({chunks} chunks of 2^20 events), "
+                                     f"obs off")
+        assert counts[0] > 0, "[12] the v2 file's replay never launched K1"
+        same_answers("[12] ER v2 file", seen, want, stats=False)
         q = seen[-1]
         reached = snapshot_check(n, source, *eng.alloc.active_coo(), q.dist,
                                  q.parent)
-        print(f"[12] chunked replay: written in {write_s:.2f} s "
-              f"({path.stat().st_size / 1e6:.1f} MB), dist equal to phase "
-              f"3's at all {len(seen)} queries, final snapshot passes "
-              f"Dijkstra ({reached} reached)")
+        print(f"[12] v2 file: written in {write_s:.2f} s "
+              f"({path.stat().st_size / 1e6:.1f} MB), replayed through "
+              f"open_trace: dist equal to phase 3's at all {len(seen)} "
+              f"queries, its final snapshot passes Dijkstra ({reached} "
+              f"reached)")
         del eng, seen, trace, q
 
         # ---- RMAT(20) on K2: auto, buckets, obs on
@@ -2828,7 +2837,7 @@ F4_ARCHS = ("equiformer-v2",)   # NaN gradients at full depth: ROADMAP F4
 F4_BAND = 10.0
 REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892   # registry minibatch_lg
 RETRIEVAL_CUT = 262_144  # of retrieval_cand's 1,000,000 candidates
-CARD = "cuda"            # phase 15's device; "cpu" rehearses it on the host
+CARD = "cuda"            # phases 15 and 18: "cpu" rehearses them on the host
 
 
 def step_both(torch, model_cpu, loss_fn, batch_cpu):
@@ -4067,6 +4076,160 @@ def aggregation_path(torch):
                 "src/repro/kernels/embed_bag/embed_bag.py:49", shapes[1])]
 
 
+STRAGGLER_BOUNDS = (1, 4)   # phase 18's max_rounds; the last one's
+# sequence also runs on the plain versions, issue by issue (the first one's
+# many one-wave issues would double the phase's time)
+
+
+def straggler_layouts(torch, ctx) -> list:
+    """Phase 18's layouts, built on the card from the streams phases 3, 4
+    and 6 ran: the ER(20) stream's edges as a dense ELL block (K1), the
+    RMAT(20) stream's as the sliced hybrid layout (K2), phase 6's base
+    graph as the sparse frontier's OUT sidecar and pool (K3); each with its
+    epoch ``run(state, frontier, kernel, **kw) -> (state, stats)``, its
+    source and its 4 lanes (phase 9's on the streams, phase 6c's on the
+    base)."""
+    from repro_torch.core import frontier as frontier_mod
+    from repro_torch.core.backends import ellpack, sliced
+    from repro_torch.core.state import EdgePool
+    from repro_torch.graphs import csr, generators
+    from repro_torch.kernels.relax import fused, gather, relax
+
+    def dev(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(CARD)
+                for a in arrays]
+
+    def adds(log):
+        add = log.kind == 0
+        return log.src[add], log.dst[add], log.w[add]
+
+    out = []
+    c = ctx["er"]
+    src, dst, w = adds(c["log"])
+    k = csr.next_pow2(int(np.bincount(dst, minlength=c["n"]).max()))
+    idx, ww, _ = ellpack.EllPlanner(c["n"], init_k=k).rebuild_host(src, dst,
+                                                                   w)
+    idx, ww = dev(idx, ww)
+
+    def ell_run(s, f, kernel, **kw):
+        return ellpack.ell_relax_until_converged(s, idx, ww, f,
+                                                 use_kernel=kernel, **kw)
+
+    out.append(("K1", f"ER stream (n={c['n']}) as a dense ELL block",
+                relax.ellpack_relax, c["n"],
+                c["sources"], ell_run, f"{len(src)} edges, K={k}"))
+    c = ctx["rmat"]
+    src, dst, w = adds(c["log"])
+    pl = sliced.SlicedEllPlanner(c["n"])
+    st = sliced.SlicedEllState.from_host(pl, pl.rebuild_host(src, dst, w),
+                                         CARD)
+
+    def sliced_run(s, f, kernel, **kw):
+        return sliced.sliced_relax_until_converged(
+            s, st, f, num_vertices=pl.n, use_fused=kernel, **kw)
+
+    out.append(("K2", f"RMAT stream (n={c['n']}) as the sliced layout",
+                fused.fused_sliced_relax, c["n"],
+                c["sources"], sliced_run,
+                f"{len(src)} edges, {len(st.widths)} slices"))
+    n, bs, bd, bw = ctx["sparse"]["graph"]
+    side = frontier_mod.OutAdjacency(n, CARD)
+    side.state = sliced.SlicedEllState.from_host(
+        side.planner, side.planner.rebuild_host(bd, bs, bw), CARD,
+        with_blocks=False)                       # rows are the sources
+    pool = EdgePool(*dev(bs.astype(np.int32), bd.astype(np.int32),
+                         bw.astype(np.float32), np.ones(len(bs), bool)))
+    caps = frontier_mod.capacity_ladder(n)
+
+    def sparse_run(s, f, kernel, **kw):
+        return frontier_mod.sparse_relax_until_converged(
+            s, pool, side.state, f, num_vertices=n, caps=caps,
+            use_kernel=kernel, **kw)[:2]
+
+    top = [int(v) for v in generators.top_in_degree_sources(n, bd, LANES)]
+    out.append(("K3", f"phase 6's base (n={n}), sparse",
+                gather.gathered_rows_relax, n, [0, *[v for v in top if v != 0][:LANES - 1]], sparse_run,
+                f"{len(bs)} edges, ladder {caps}"))
+    return out
+
+
+def straggler_path(torch, ctx) -> dict:
+    """Phase 18: the straggler bound.  On each of ``straggler_layouts``,
+    for one source and for its 4 lanes (the lane forms): the first ADD
+    epoch from the source(s) over the whole edge set, unbounded, then with
+    ``max_rounds`` 1 and 4 re-issued with ``dist < dist before`` as the
+    frontier until nothing improves: at most ``max_rounds`` waves an
+    issue, more than one issue, and the sequence's end bit-identical to
+    the unbounded epoch; under the last bound every issue on the kernel
+    also against the same issue on the plain versions (``use_kernel=
+    False``; K2's plain composition), bit for bit.  The kernels' counts are set to 0 just before each kernel
+    sequence and read just after (the plain runs must launch none).
+    Returns each kernel's ``bounded`` record."""
+    from repro_torch.core.state import SSSPState
+    t0 = time.perf_counter()
+    layouts = straggler_layouts(torch, ctx)
+    print(f"[18] layouts built in {time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{name} {label} ({what})"
+                      for name, label, _, _, _, _, what in layouts))
+    records = {}
+    for name, label, kfn, n, sources, run, _ in layouts:
+        rec = {"launches": 0, "max_rounds": {}}
+        for lanes in (1, LANES):
+            srcs = tuple(sources[:lanes])
+            s0 = (SSSPState.init(n, srcs[0], CARD) if lanes == 1
+                  else SSSPState.init_batched(n, srcs, CARD))
+            f0 = torch.zeros(n, dtype=torch.bool, device=CARD)
+            f0[list(srcs)] = True
+            want, wst = run(s0, f0, True)
+            for bound_ in STRAGGLER_BOUNDS:
+                s, f, issues, waves = s0, f0, 0, 0
+                kfn.launches = kfn.lane_launches = 0
+                while True:
+                    got, st = run(s, f, True, max_rounds=bound_)
+                    if bound_ == STRAGGLER_BOUNDS[-1]:
+                        counted = kfn.launches + kfn.lane_launches
+                        plain, pst = run(s, f, False, max_rounds=bound_)
+                        assert kfn.launches + kfn.lane_launches == counted, \
+                            f"[18] {name}: the plain version launched"
+                        same = (torch.equal(got.dist, plain.dist)
+                                and torch.equal(got.parent, plain.parent)
+                                and torch.equal(st.messages, pst.messages)
+                                and np.array_equal(st.rounds, pst.rounds))
+                        assert same, f"[18] {name} S={lanes} max_rounds=" \
+                            f"{bound_}: issue {issues} differs from the plain"
+                    assert np.max(st.rounds) <= bound_
+                    issues += 1
+                    waves += int(np.max(st.rounds))
+                    improved = got.dist < s.dist
+                    s = got
+                    if not bool(improved.any()):
+                        break
+                    f = improved
+                assert issues > 1, f"[18] {name}: the bound never bit"
+                assert torch.equal(s.dist, want.dist) and torch.equal(
+                    s.parent, want.parent), \
+                    f"[18] {name} S={lanes} max_rounds={bound_}: the " \
+                    f"re-issued epochs differ from the unbounded one"
+                # K1's and K2's lane forms count into both counters
+                launches = kfn.lane_launches if lanes > 1 else kfn.launches
+                assert launches > 0, f"[18] {name}: no launch"
+                rec["launches"] += launches
+                rec["max_rounds"][f"S{lanes}_{bound_}"] = dict(
+                    issues=issues, waves=waves, launches=launches,
+                    unbounded_waves=int(np.max(wst.rounds)))
+        records[name] = rec
+        print(f"[18] {name} {label}: one source and S = {LANES} lanes, "
+              f"max_rounds {STRAGGLER_BOUNDS} re-issued bit-identical to the "
+              f"unbounded epoch, and under {STRAGGLER_BOUNDS[-1]} to the "
+              f"plain versions at every issue; "
+              + ", ".join(f"{k}: {v['issues']} issues, {v['waves']} waves "
+                          f"(unbounded {v['unbounded_waves']}), {name} "
+                          f"launches {v['launches']}"
+                          for k, v in rec["max_rounds"].items()))
+    print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4104,6 +4267,11 @@ def main() -> int:
     k1_lanes, k2_lanes = lanes_legs(torch, ctx)
     kernels[0]["lanes"], kernels[1]["lanes"] = k1_lanes, k2_lanes
     kernels[2]["lanes"]["cross_check_launches"] = lanes_cross_check(torch)
+
+    # ---- 18. the straggler bound on K1, K2 and K3
+    bounded = straggler_path(torch, ctx)
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        k["bounded"] = bounded[name]
 
     # ---- 12. the serving path with observability
     served = serving_legs(torch, ctx)

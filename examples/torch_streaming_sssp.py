@@ -153,7 +153,8 @@ def main():
 
     if args.power_law:
         n = 1 << args.scale
-        n, src, dst, w = gen.power_law_hubs(n, 10 * n, n_hubs=4, seed=7)
+        n, src, dst, w = gen.power_law_hubs(n, 10 * n, n_hubs=4, seed=7,
+                                            orientation="in")
     else:
         n, src, dst, w = gen.rmat(args.scale, edge_factor=8, seed=7)
     source = int(gen.top_in_degree_sources(n, dst)[0])

@@ -18,7 +18,6 @@ from repro_torch.core.dist_engine import (ShardedEngineConfig,
                                           ShardedSSSPDelEngine)
 from repro_torch.core.engine import EngineConfig, SSSPDelEngine
 from repro_torch.core.factory import make_engine
-from repro_torch.graphs.datasets import dataset_to_trace, load_dataset_or_exit
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.serving import (ServingTrace, TraceReader, TraceRecorder,
                                  open_trace, replay_trace)
@@ -27,3 +26,23 @@ __all__ = ["EngineConfig", "Mesh", "SSSPDelEngine", "ServingTrace",
            "ShardedEngineConfig", "ShardedSSSPDelEngine", "TraceReader",
            "TraceRecorder", "dataset_to_trace", "load_dataset_or_exit",
            "make_engine", "make_mesh", "open_trace", "replay_trace"]
+
+# The dataset names resolve on first use (PEP 562, as the reference's whole
+# surface does), so that ``python -m repro_torch.graphs.datasets`` finds
+# its module not yet imported by the package.
+_LAZY = {"dataset_to_trace": "repro_torch.graphs.datasets",
+         "load_dataset_or_exit": "repro_torch.graphs.datasets"}
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    value = getattr(importlib.import_module(_LAZY[name]), name)
+    globals()[name] = value   # cache: the next access skips __getattr__
+    return value
+
+
+def __dir__() -> list[str]:
+    return sorted(set(globals()) | set(__all__))

@@ -16,8 +16,9 @@ through ``make_sharded_backend``.
 """
 from repro_torch.core.backends.base import (AUTO_BACKEND, BACKENDS,
                                             ELL_BLOWUP_RATIO,
-                                            SHARDED_BACKENDS, RelaxBackend,
-                                            ShardedBackend, make_backend,
+                                            SHARDED_BACKENDS, WAVE_SCHEDULES,
+                                            RelaxBackend, ShardedBackend,
+                                            make_backend,
                                             make_sharded_backend,
                                             rank_within_rows, register,
                                             register_sharded,
@@ -27,22 +28,26 @@ from repro_torch.core.backends.segment import (SegmentBackend, ShardedSegment,
 from repro_torch.core.backends.ellpack import (EllPlanner, EllState,
                                                EllpackBackend, ShardedEllpack,
                                                ell_append, ell_delete,
-                                               ell_update_min)
+                                               ell_invariants, ell_update_min)
 from repro_torch.core.backends.sliced import (ShardedSliced, SlicedBackend,
                                               SlicedEllPlanner,
                                               SlicedEllState, SlicedPlan,
                                               sliced_append, sliced_delete,
-                                              sliced_spill, sliced_update_min)
+                                              sliced_invariants, sliced_spill,
+                                              sliced_update_min)
+
+RELAX_BACKENDS = tuple(sorted(BACKENDS))
 
 __all__ = [
-    "AUTO_BACKEND", "BACKENDS", "ELL_BLOWUP_RATIO", "RelaxBackend",
+    "AUTO_BACKEND", "BACKENDS", "ELL_BLOWUP_RATIO", "RELAX_BACKENDS",
+    "WAVE_SCHEDULES", "RelaxBackend",
     "make_backend", "rank_within_rows", "register", "validate_backend_config",
     "SHARDED_BACKENDS", "ShardedBackend", "make_sharded_backend",
     "register_sharded",
     "SegmentBackend", "ShardedSegment", "shard_segment_wave",
     "EllpackBackend", "ShardedEllpack", "EllPlanner", "EllState",
-    "ell_append", "ell_delete", "ell_update_min",
+    "ell_append", "ell_delete", "ell_invariants", "ell_update_min",
     "SlicedBackend", "ShardedSliced", "SlicedEllPlanner", "SlicedEllState",
-    "SlicedPlan", "sliced_append", "sliced_delete", "sliced_spill",
-    "sliced_update_min",
+    "SlicedPlan", "sliced_append", "sliced_delete", "sliced_invariants",
+    "sliced_spill", "sliced_update_min",
 ]

@@ -234,17 +234,18 @@ class EllPlanner:
 # ------------------------------------------------------------------ epochs --
 def ell_relax_until_converged(sssp: SSSPState, nbr_idx: torch.Tensor,
                               nbr_w: torch.Tensor, frontier: torch.Tensor, *,
-                              use_kernel: bool = False
+                              max_rounds: int = 0, use_kernel: bool = False
                               ) -> tuple[SSSPState, RelaxStats]:
     """ELL rendering of relax.relax_until_converged: frontier-masked waves to
-    fixpoint.  Same candidate sets, same tie-break => bit-identical results."""
+    fixpoint, or for at most ``max_rounds`` waves when that is positive.
+    Same candidate sets, same tie-break => bit-identical results."""
 
     def wave(dist, parent, frontier):
         return relax_wave(dist, parent, nbr_idx, nbr_w, frontier=frontier,
                           use_kernel=use_kernel)
 
     dist, parent, rounds, msgs = converged_loop(
-        sssp.dist, sssp.parent, frontier, wave)
+        sssp.dist, sssp.parent, frontier, wave, max_rounds=max_rounds)
     return (SSSPState(dist=dist, parent=parent, source=sssp.source),
             RelaxStats(rounds=rounds, messages=msgs))
 
@@ -309,6 +310,13 @@ def ell_drain(sssp: SSSPState, nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
         sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
         wave=wave, pull_wave=pull_wave)
     return (*buckets.drained(sssp, pend, dist, parent), stats)
+
+
+# the reference's vmapped lane-stack entry points: the epochs above take
+# [S, N] lanes themselves
+ell_relax_batched = ell_relax_until_converged
+ell_delete_batched = ell_invalidate_and_recompute
+ell_drain_batched = ell_drain
 
 
 # ----------------------------------------------------------------- backend --

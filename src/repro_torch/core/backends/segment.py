@@ -25,6 +25,11 @@ from repro_torch.core.backends.base import (RelaxBackend, ShardedBackend,
 from repro_torch.core.relax import BIG, segment_min
 from repro_torch.core.state import INF
 
+# the reference's vmapped lane-stack epochs: relax.py's and delete.py's take
+# [S, N] lanes themselves
+segment_relax_batched = relax.relax_until_converged
+segment_delete_batched = del_mod.invalidate_and_recompute
+
 
 def shard_segment_wave(esrc: torch.Tensor, edst: torch.Tensor,
                        ew: torch.Tensor, eact: torch.Tensor, row0: int,

@@ -248,12 +248,14 @@ def sliced_relax_wave(dist: torch.Tensor, parent: torch.Tensor,
 # ------------------------------------------------------------------ epochs --
 def sliced_relax_until_converged(sssp: SSSPState, st: SlicedEllState,
                                  frontier: torch.Tensor, *,
-                                 num_vertices: int, use_kernel: bool = False,
+                                 num_vertices: int, max_rounds: int = 0,
+                                 use_kernel: bool = False,
                                  use_fused: bool = False
                                  ) -> tuple[SSSPState, RelaxStats]:
     """Sliced rendering of relax.relax_until_converged: frontier-masked
-    hybrid waves to fixpoint.  Same candidate sets, same tie-break =>
-    bit-identical results and stats."""
+    hybrid waves to fixpoint, or for at most ``max_rounds`` waves when that
+    is positive.  Same candidate sets, same tie-break => bit-identical
+    results and stats."""
 
     def wave(dist, parent, frontier):
         return sliced_relax_wave(
@@ -261,7 +263,7 @@ def sliced_relax_until_converged(sssp: SSSPState, st: SlicedEllState,
             use_kernel=use_kernel, use_fused=use_fused)
 
     dist, parent, rounds, msgs = converged_loop(
-        sssp.dist, sssp.parent, frontier, wave)
+        sssp.dist, sssp.parent, frontier, wave, max_rounds=max_rounds)
     return (SSSPState(dist=dist, parent=parent, source=sssp.source),
             RelaxStats(rounds=rounds, messages=msgs))
 
@@ -322,6 +324,13 @@ def sliced_drain(sssp: SSSPState, st: SlicedEllState,
         sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
         wave=wave, pull_wave=pull_wave)
     return (*buckets.drained(sssp, pend, dist, parent), stats)
+
+
+# the reference's vmapped lane-stack entry points: the epochs above take
+# [S, N] lanes themselves
+sliced_relax_batched = sliced_relax_until_converged
+sliced_delete_batched = sliced_invalidate_and_recompute
+sliced_drain_batched = sliced_drain
 
 
 # ------------------------------------------------------------ host planner --

@@ -216,3 +216,9 @@ def segment_drain(sssp: SSSPState, edges: EdgePool, pend: PendingState, *,
         sssp.dist, sssp.parent, pend, bucket_width=bucket_width,
         wave=wave, pull_wave=pull_wave)
     return (*drained(sssp, pend, dist, parent), stats)
+
+
+# the reference's vmapped lane-stack entry points: the functions above take
+# [S, N] lanes themselves
+lazy_delete_batched = lazy_delete
+segment_drain_batched = segment_drain

@@ -195,3 +195,8 @@ def deletion_seed_for_edges(sssp: SSSPState, del_src: torch.Tensor,
     safe = del_dst.clamp(0, num_vertices - 1)
     is_tree = sssp.parent[..., safe] == del_src
     return relax.mark_vertices(safe, is_tree & (del_dst >= 0), num_vertices)
+
+
+# the reference's vmapped lane-stack entry point: the function above takes
+# [S, N] lanes itself
+deletion_seed_for_edges_batched = deletion_seed_for_edges

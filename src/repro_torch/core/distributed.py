@@ -64,6 +64,7 @@ from repro_torch.launch.mesh import Mesh
 __all__ = ["DistConfig", "DistributedSSSP", "MeshWave", "ShardWave",
            "inactive_dst_layout", "mesh_wave", "per_partition_occupancy"]
 
+BIG = relax.BIG   # "no candidate" key of the smallest-src-id pass
 Parts = list[torch.Tensor]   # one tensor per partition, on its device
 ShardWave = Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
 MeshWave = Callable[[Parts], list[tuple[torch.Tensor, torch.Tensor]]]
@@ -364,7 +365,11 @@ class DistributedSSSP:
         """Relaxation rounds to fixpoint (or ``max_rounds``) with the given
         mesh wave.  Returns (dist, parent, rounds, messages); messages count
         DistanceUpdate deliveries — improvements summed over partitions —
-        and a lane stack counts both per lane."""
+        and a lane stack counts both per lane.  The reference bounds each
+        lane by its own ``rounds < max_rounds``; the lanes still going
+        share the wave count (a lane whose frontier empties stays empty),
+        so ``max(rounds) >= max_rounds`` stops every lane where its own
+        bound would."""
         delta = self.cfg.exchange == "delta"
         rounds = relax.no_rounds(dist[0])
         msgs = torch.zeros(dist[0].shape[:-1], dtype=torch.int64,

@@ -58,11 +58,12 @@ from repro_torch.core import delete as del_mod
 from repro_torch.core import events as ev
 from repro_torch.core import frontier as frontier_mod
 from repro_torch.core import ingest, relax
+from repro_torch.core.backends import RELAX_BACKENDS
 from repro_torch.core.state import EdgePool, GraphState, SSSPState
 from repro_torch.core.stream import QueryResult, StreamEngineBase
 from repro_torch.obs import WatchdogConfig
 
-__all__ = ["EngineConfig", "QueryResult", "SSSPDelEngine"]
+__all__ = ["EngineConfig", "QueryResult", "SSSPDelEngine", "RELAX_BACKENDS"]
 
 
 @dataclasses.dataclass

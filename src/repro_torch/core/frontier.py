@@ -56,6 +56,7 @@ import torch
 from repro_torch.core import buckets
 from repro_torch.core import delete as del_mod
 from repro_torch.core import ingest, relax
+from repro_torch.core.backends.base import FRONTIER_MODES  # noqa: F401
 from repro_torch.core.backends.sliced import (SlicedEllPlanner,
                                               SlicedEllState, sliced_append,
                                               sliced_delete, sliced_spill,
@@ -302,16 +303,17 @@ def _occupancy(counts: list, like: torch.Tensor) -> int | np.ndarray:
 def sparse_relax_until_converged(
     sssp: SSSPState, edges: EdgePool, st: SlicedEllState,
     frontier: torch.Tensor, *, num_vertices: int, caps: tuple[int, ...],
-    use_kernel: bool = False,
+    max_rounds: int = 0, use_kernel: bool = False,
 ) -> tuple[SSSPState, RelaxStats, int | np.ndarray]:
     """Sparse rendering of ``relax.relax_until_converged``: the same
     converged-loop driver and mask carry ([N], or [S, N] lanes from an [N]
-    ADD frontier they share), each wave through the capacity ladder.  Also
-    returns the summed per-wave occupancy (per lane)."""
+    ADD frontier they share), each wave through the capacity ladder, for at
+    most ``max_rounds`` waves when that is positive.  Also returns the
+    summed per-wave occupancy (per lane) of the waves that ran."""
     wave, counts = _ladder(st, edges, caps=caps, num_vertices=num_vertices,
                            use_kernel=use_kernel)
     dist, parent, rounds, msgs = converged_loop(
-        sssp.dist, sssp.parent, frontier, wave)
+        sssp.dist, sssp.parent, frontier, wave, max_rounds=max_rounds)
     return (SSSPState(dist=dist, parent=parent, source=sssp.source),
             RelaxStats(rounds=rounds, messages=msgs),
             _occupancy(counts, dist))

@@ -39,6 +39,13 @@ def dijkstra(
     return dist, parent
 
 
+def edges_of_pool(pool_src, pool_dst, pool_w, pool_active):
+    """Extract the active COO triple from (host copies of) an EdgePool."""
+    m = np.asarray(pool_active)
+    return (np.asarray(pool_src)[m], np.asarray(pool_dst)[m],
+            np.asarray(pool_w)[m])
+
+
 def check_tree(
     num_vertices: int,
     src: np.ndarray,

@@ -27,6 +27,11 @@ sync per wave and advances a lane's round count only while that lane's own
 frontier is non-empty, as the reference's vmapped ``while_loop`` freezes a
 finished lane's carry; a wave over an empty frontier changes nothing, so
 the finished lanes ride along unchanged.
+
+The straggler bound (``max_rounds``, DESIGN.md §7): a bounded epoch stops
+after ``max_rounds`` waves and is re-issued with the improved frontier
+until it converges; 0 = unbounded.  Monotone relaxation is idempotent, so
+the re-issued sequence reaches the unbounded epoch's fixpoint.
 """
 from __future__ import annotations
 
@@ -110,45 +115,65 @@ Wave = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
 
 
 def converged_loop(dist: torch.Tensor, parent: torch.Tensor,
-                   frontier: torch.Tensor, wave: Wave
+                   frontier: torch.Tensor, wave: Wave, *,
+                   max_rounds: int = 0
                    ) -> tuple[torch.Tensor, torch.Tensor, int | np.ndarray,
                               torch.Tensor]:
     """The shared wave-to-fixpoint driver: loop ``wave(dist, parent,
-    frontier) -> (dist, parent, improved)`` while the frontier is non-empty.
-    Returns (dist, parent, rounds, messages) with the reference's counting:
-    one round per executed wave, one message per improvement — per lane
-    for an [S, N] stack, where a lane counts a round only while its own
-    frontier is non-empty (one flag read per wave for all S lanes)."""
+    frontier) -> (dist, parent, improved)`` while the frontier is non-empty,
+    for at most ``max_rounds`` waves when that is positive.  Returns (dist,
+    parent, rounds, messages) with the reference's counting: one round per
+    executed wave, one message per improvement — per lane for an [S, N]
+    stack, where a lane counts a round only while its own frontier is
+    non-empty (one flag read per wave for all S lanes).
+
+    The reference bounds each vmapped lane by its own ``rounds <
+    max_rounds``.  A lane whose frontier empties stays empty, so every lane
+    still going has run every wave so far and its round count is the wave
+    count: stopping the loop after ``max_rounds`` waves freezes each lane
+    where its own bound would, and no lane past its bound is relaxed
+    again.  The bound is checked before the flag read, so a bounded epoch
+    reads the host no more often than an unbounded one."""
     rounds = no_rounds(dist)
     msgs = torch.zeros(dist.shape[:-1], dtype=torch.int64, device=dist.device)
     frontier = frontier.expand(dist.shape)   # an ADD frontier is shared
-    while True:
+    waves = 0
+    while not (max_rounds and waves >= max_rounds):
         go = host_flags(frontier)   # the per-wave host sync
         if not np.any(go):
-            return dist, parent, rounds, msgs
+            break
         dist, parent, frontier = wave(dist, parent, frontier)
         msgs += frontier.sum(-1)
         rounds += go
+        waves += 1
+    return dist, parent, rounds, msgs
 
 
 def relax_until_converged(sssp: SSSPState, edges: EdgePool,
                           frontier: torch.Tensor, *, num_vertices: int,
+                          max_rounds: int = 0,
                           tie_perm: torch.Tensor | None = None
                           ) -> tuple[SSSPState, RelaxStats]:
     """Run rounds until fixpoint (== the paper's epoch drain; it terminates:
-    distances strictly decrease and are bounded below), with
-    ``relax_round``'s ``tie_perm``.  The reference's ``max_rounds`` bound
-    serves only its sharded straggler path (``DistConfig.max_rounds``
-    here)."""
+    distances strictly decrease and are bounded below), or for at most
+    ``max_rounds`` rounds when that is positive (the straggler bound,
+    ``converged_loop``), with ``relax_round``'s ``tie_perm``.  The sharded
+    engine bounds its epochs through ``DistConfig.max_rounds``."""
 
     def wave(dist, parent, frontier):
         return relax_round(dist, parent, edges, frontier,
                            num_vertices=num_vertices, tie_perm=tie_perm)
 
     dist, parent, rounds, msgs = converged_loop(
-        sssp.dist, sssp.parent, frontier, wave)
+        sssp.dist, sssp.parent, frontier, wave, max_rounds=max_rounds)
     return (SSSPState(dist=dist, parent=parent, source=sssp.source),
             RelaxStats(rounds=rounds, messages=msgs))
+
+
+def full_frontier(num_vertices: int, device: torch.device | str = "cuda"
+                  ) -> torch.Tensor:
+    """Every vertex in the frontier: bool[N] of ones on ``device``."""
+    return torch.ones(num_vertices, dtype=torch.bool, device=device)
 
 
 def mark_vertices(vertices: torch.Tensor, upd: torch.Tensor,

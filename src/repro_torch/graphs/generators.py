@@ -7,8 +7,9 @@ packages.
   0.19, 0.05), the paper's RMAT(20) source, weights U(0, 4) floored at
   1e-3: power-law in-degree hubs, the sliced backend's workload;
 * ``erdos_renyi`` — uniform random digraphs;
-* ``power_law_hubs`` — a few in-degree hubs on ~30 % of the edges (the
-  example's ``--power-law`` stream);
+* ``power_law_hubs`` — a few hubs on ~30 % of the edges, out-degree hubs
+  by default, in-degree hubs with ``orientation="in"`` (the examples'
+  ``--power-law`` / ``--hubs`` stream);
 * ``grid2d`` — a rows x cols lattice with unit weights (deep trees, ties
   everywhere: the baselines' stability workload).
 """
@@ -86,25 +87,33 @@ def grid2d(rows: int, cols: int, *, bidirectional: bool = True,
     return n, src, dst, w
 
 
-def power_law_hubs(n: int, m: int, n_hubs: int = 3, *, seed: int = 0
+def power_law_hubs(n: int, m: int, n_hubs: int = 3, *, seed: int = 0,
+                   orientation: str = "out"
                    ) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
-    """Hub-heavy digraph: ~30% of edges end at one of ``n_hubs`` hubs, the
+    """Hub-heavy digraph: ~30% of edges touch one of ``n_hubs`` hubs, the
     rest are uniform.
 
-    The hub mass sits on the *destination* side (high in-degree hubs — the
-    regime that stresses by-destination edge layouts: dense ELL pads every
-    row to the hub degree, the sliced/hybrid backend exists for exactly
-    this shape — DESIGN.md §6).  The stream equals the reference's
-    ``power_law_hubs(..., orientation="in")``.
+    ``orientation="out"`` (the reference's default) puts the hub mass on
+    the *source* side (high out-degree hubs — large reachable sets, the
+    source-selection regime).  ``"in"`` puts it on the *destination* side
+    (high in-degree hubs — the regime that stresses by-destination edge
+    layouts: dense ELL pads every row to the hub degree, the sliced/hybrid
+    backend exists for exactly this shape — DESIGN.md §6).  Both draw the
+    same random stream, and each equals the reference's.
     """
+    if orientation not in ("out", "in"):
+        raise ValueError(f"orientation must be 'out' or 'in'; got "
+                         f"{orientation!r}")
     rng = np.random.default_rng(seed)
     hubs = rng.choice(n, n_hubs, replace=False)
     m_hub = m // 3
-    dst = np.concatenate([
+    hub_end = np.concatenate([
         rng.choice(hubs, m_hub),
         rng.integers(0, n, m - m_hub),
     ])
-    src = rng.integers(0, n, m)
+    uni_end = rng.integers(0, n, m)
+    src, dst = ((hub_end, uni_end) if orientation == "out"
+                else (uni_end, hub_end))
     keep = src != dst
     src, dst = src[keep], dst[keep]
     key = src * n + dst

@@ -65,3 +65,14 @@ def sliding_window_stream(
         np.concatenate(kinds), np.concatenate(srcs).astype(np.int64),
         np.concatenate(dsts).astype(np.int64), np.concatenate(ws))
 
+
+
+def stream_stats(log: ev.EventLog) -> dict[str, int]:
+    """ADD, DEL and QUERY counts of an event log, and its length."""
+    k = log.kind
+    return {
+        "adds": int((k == ev.ADD).sum()),
+        "dels": int((k == ev.DEL).sum()),
+        "queries": int((k == ev.QUERY).sum()),
+        "events": len(k),
+    }

@@ -89,17 +89,17 @@ def _check_minor(offers: torch.Tensor, minor: torch.Tensor) -> None:
             f"{tuple(offers.shape)}")
 
 
-def ellpack_relax_ref(offers: torch.Tensor, nbr_idx: torch.Tensor,
+def ellpack_relax_ref(dist: torch.Tensor, nbr_idx: torch.Tensor,
                       nbr_w: torch.Tensor, *,
                       offers_minor: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     if offers_minor is not None:
         # the lanes' offers read from their lane-minor copy
-        _check_minor(offers, offers_minor)
+        _check_minor(dist, offers_minor)
         g, n, w = offers_minor.shape
         lanes = offers_minor.transpose(1, 2).reshape(g * w, n)
-        offers = lanes[:offers.shape[0]]
-    cand = offers[..., nbr_idx] + nbr_w                    # ([S,] R, K)
+        dist = lanes[:dist.shape[0]]
+    cand = dist[..., nbr_idx] + nbr_w                    # ([S,] R, K)
     best = cand.amin(dim=-1)
     is_min = cand == best[..., None]
     arg = torch.where(is_min, nbr_idx, _BIG).amin(dim=-1)

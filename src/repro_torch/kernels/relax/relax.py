@@ -163,54 +163,56 @@ class LaneMinorOnce:
         return self._copy
 
 
-def ellpack_relax(offers: torch.Tensor, nbr_idx: torch.Tensor,
+def ellpack_relax(dist: torch.Tensor, nbr_idx: torch.Tensor,
                   nbr_w: torch.Tensor, *,
                   offers_minor: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """best[i], arg[i] = min-plus reduction of row i's in-neighbors (per
-    lane for (S, N) offers).
+    lane for (S, N) dist).
 
-    Shapes: offers (N,) or (S, N) f32; nbr_idx (R, K) i32 (entries in
-    [0, N)); nbr_w (R, K) f32 (+inf padding and tombstones).  No row-count
-    constraint.  ``offers_minor``: ``lane_minor(offers)`` already made
-    (for (S, N) offers only; the kernel reads the offers from it).
+    Shapes: dist (N,) or (S, N) f32, the offers (+inf where a source does
+    not offer: the waves pass frontier-masked distances); nbr_idx (R, K)
+    i32 (entries in [0, N)); nbr_w (R, K) f32 (+inf padding and
+    tombstones).  No row-count constraint.  ``offers_minor``:
+    ``lane_minor(dist)`` already made (for (S, N) dist only; the kernel
+    reads the offers from it).
     """
-    if (offers.device.type == "cpu" and nbr_idx.device.type == "cpu"
+    if (dist.device.type == "cpu" and nbr_idx.device.type == "cpu"
             and nbr_w.device.type == "cpu" and (
                 offers_minor is None or offers_minor.device.type == "cpu")):
-        return ellpack_relax_ref(offers, nbr_idx, nbr_w,
+        return ellpack_relax_ref(dist, nbr_idx, nbr_w,
                                  offers_minor=offers_minor)
-    _check(offers, nbr_idx, nbr_w)
+    _check(dist, nbr_idx, nbr_w)
     rows, k = nbr_idx.shape
-    lanes = offers.shape[:-1]
+    lanes = dist.shape[:-1]
     if offers_minor is not None and (
             not lanes or tuple(offers_minor.shape) != lane_minor_shape(
-                *offers.shape)
+                *dist.shape)
             or offers_minor.dtype != torch.float32
-            or offers_minor.device != offers.device
+            or offers_minor.device != dist.device
             or not offers_minor.is_contiguous()
             or offers_minor.data_ptr() % 16):
         raise ValueError(
             f"ellpack_relax: offers_minor must be the contiguous, 16-byte "
-            f"aligned f32 lane-minor copy of (S, N) offers on "
-            f"{offers.device}; got {offers_minor.dtype} "
+            f"aligned f32 lane-minor copy of (S, N) dist on "
+            f"{dist.device}; got {offers_minor.dtype} "
             f"{tuple(offers_minor.shape)} on {offers_minor.device} for "
-            f"offers {tuple(offers.shape)}")
+            f"dist {tuple(dist.shape)}")
     best = torch.empty((*lanes, rows), dtype=torch.float32,
-                       device=offers.device)
-    arg = torch.empty((*lanes, rows), dtype=torch.int32, device=offers.device)
+                       device=dist.device)
+    arg = torch.empty((*lanes, rows), dtype=torch.int32, device=dist.device)
     if best.numel() == 0:
         return best, arg
     if lanes:
-        minor = lane_minor(offers) if offers_minor is None else offers_minor
-        build.launch("ellpack_relax", launcher(True), offers.device,
+        minor = lane_minor(dist) if offers_minor is None else offers_minor
+        build.launch("ellpack_relax", launcher(True), dist.device,
                      minor.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
                      best.data_ptr(), arg.data_ptr(), rows, k,
-                     offers.shape[-1], lanes[0])
+                     dist.shape[-1], lanes[0])
         ellpack_relax.lane_launches += 1
     else:
-        build.launch("ellpack_relax", launcher(), offers.device,
-                     offers.data_ptr(), nbr_idx.data_ptr(),
+        build.launch("ellpack_relax", launcher(), dist.device,
+                     dist.data_ptr(), nbr_idx.data_ptr(),
                      nbr_w.data_ptr(), best.data_ptr(), arg.data_ptr(),
                      rows, k)
     ellpack_relax.launches += 1

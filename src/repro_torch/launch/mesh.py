@@ -24,7 +24,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["Mesh", "graph_axes", "make_mesh", "make_production_mesh",
-           "visible_devices"]
+           "make_test_mesh", "visible_devices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +85,20 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                          f"{len(devices)} devices")
     return Mesh(shape=dict(zip(axes, shape)), axis_names=axes,
                 devices=devices)
+
+
+def make_test_mesh(shape: Sequence[int] | None = None,
+                   axes: Sequence[str] | None = None, *,
+                   device: torch.device | str = "cuda") -> Mesh:
+    """A mesh over the visible devices of ``device``'s type (tests / local
+    runs): every visible CUDA card, or the one CPU partition when the
+    caller asks for the CPU.  With no ``shape``, ``(1, n)`` over
+    ``("data", "model")`` for n > 1 devices, else ``(1, 1)``."""
+    devs = visible_devices(torch.device(device).type)
+    n = len(devs)
+    if shape is None:
+        shape, axes = (1, n) if n > 1 else (1, 1), ("data", "model")
+    return make_mesh(shape, axes, devices=devs[:math.prod(shape)])
 
 
 def graph_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -84,6 +84,11 @@ def init_din(cfg: DINConfig, generator: torch.Generator | None = None,
     })
 
 
+def din_param_shapes(cfg: DINConfig) -> DIN:
+    """The parameter tree on ``meta`` (shapes and dtypes, no allocation)."""
+    return init_din(cfg, device="meta")
+
+
 def _embed_items(params, item_ids, cate_ids):
     """(..., ) int32 ids -> (..., 2*d) [item ++ cate] embeddings."""
     return torch.cat([params.item_emb[item_ids], params.cate_emb[cate_ids]],

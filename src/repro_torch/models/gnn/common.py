@@ -52,10 +52,10 @@ def stacked(n: int, make) -> dict:
     return stack(*trees)
 
 
-def mlp(p, x: torch.Tensor, *, act=F.silu, final_act: bool = False
+def mlp(params, x: torch.Tensor, *, act=F.silu, final_act: bool = False
         ) -> torch.Tensor:
-    n = len(p.w)
-    for i, (w, b) in enumerate(zip(p.w, p.b)):
+    n = len(params.w)
+    for i, (w, b) in enumerate(zip(params.w, params.b)):
         x = x @ w.to(x.dtype) + b.to(x.dtype)
         if i < n - 1 or final_act:
             x = act(x)

@@ -95,14 +95,15 @@ def _shapes(params) -> dict[str, tuple]:
     return {k: tuple(getattr(v, "shape", v)) for k, v in params.items()}
 
 
-def lm_param_specs(params, mesh, *, fsdp_axis="data", tp_axis="model"
-                   ) -> dict[str, tuple]:
-    """``{path: spec}`` for an LM parameter tree (a module or shapes).
+def lm_param_specs(params_shape, mesh, *, fsdp_axis="data",
+                   tp_axis="model") -> dict[str, tuple]:
+    """``{path: spec}`` for an LM parameter tree (a module, on ``meta`` or
+    not, or shapes).
 
     Stacked-layer leaves (under ``blocks``) get a leading None for the L
     dim."""
     out = {}
-    for path, shape in _shapes(params).items():
+    for path, shape in _shapes(params_shape).items():
         pstr = path.replace(".", "/")
         stacked = pstr.startswith("blocks/")
         trail = shape[1:] if stacked else shape
@@ -129,14 +130,15 @@ def lm_batch_spec(mesh) -> tuple:
     return (_entry(batch_axes(mesh)),)
 
 
-def cache_spec(cache, mesh) -> dict[str, tuple]:
+def cache_spec(cache_shape, mesh) -> dict[str, tuple]:
     """KV cache sharding: batch over (pod, data); cache-length dim over
-    model.  ``cache``: a ``KVCache`` or anything with ``k`` and ``v``
-    shapes; ``length`` is a scalar (replicated, ``()``)."""
+    model.  ``cache_shape``: a ``KVCache`` (``cache_shapes`` gives one on
+    ``meta``) or anything with ``k`` and ``v`` shapes; ``length`` is a
+    scalar (replicated, ``()``)."""
     b_ax = batch_axes(mesh)
     out = {}
     for name in ("k", "v"):
-        shape = tuple(getattr(cache, name).shape)
+        shape = tuple(getattr(cache_shape, name).shape)
         want = [None, b_ax, "model"] + [None] * (len(shape) - 3)
         out[name] = spec_for(shape, want, mesh)
     out["length"] = ()

@@ -180,6 +180,31 @@ def _init_attn(cfg: LMConfig, generator, device, L: tuple, dtype) -> dict:
     return p
 
 
+def _init_blocks(cfg: LMConfig, generator, device, L: tuple, dtype) -> dict:
+    """The block leaves, each with the leading dims ``L``: ``(n_layers,)``
+    stacked for ``init_lm``, ``()`` for one block."""
+    d = cfg.d_model
+    attn = _init_attn(cfg, generator, device, L, dtype)
+    dev = attn["wq" if cfg.attn == "gqa" else "w_dq"].device
+    blk = {"attn_norm": layers.init_rms_norm(d, dev, L, dtype),
+           "mlp_norm": layers.init_rms_norm(d, dev, L, dtype),
+           "attn": attn}
+    if cfg.moe is not None:
+        blk["moe"] = moe_mod.init_moe(d, cfg.moe, generator, device, L,
+                                      dtype)
+    else:
+        blk["mlp"] = layers.init_swiglu(d, cfg.d_ff, generator, device, L,
+                                        dtype)
+    return blk
+
+
+def init_block(cfg: LMConfig, generator: torch.Generator | None = None,
+               device="cuda", dtype=torch.float32) -> dict:
+    """One transformer block's parameters (a dict of tensors), the leaves
+    of one layer of ``init_lm``'s stacked ``blocks``."""
+    return _init_blocks(cfg, generator, device, (), dtype)
+
+
 def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
             device="cuda", dtype=torch.float32) -> LM:
     """Parameters N(0, 1) scaled as the reference's (its RNG stream is not
@@ -188,19 +213,9 @@ def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
     generator's device (pass a CUDA generator to draw on the card) and
     cast to ``dtype`` as it is drawn, so a bf16 serving copy never holds
     the f32 tree; ``device="meta"`` gives shapes alone."""
-    L = (cfg.n_layers,)
     d, V = cfg.d_model, cfg.padded_vocab
-    attn = _init_attn(cfg, generator, device, L, dtype)
-    dev = attn["wq" if cfg.attn == "gqa" else "w_dq"].device
-    blocks = {"attn_norm": layers.init_rms_norm(d, dev, L, dtype),
-              "mlp_norm": layers.init_rms_norm(d, dev, L, dtype),
-              "attn": attn}
-    if cfg.moe is not None:
-        blocks["moe"] = moe_mod.init_moe(d, cfg.moe, generator, device, L,
-                                         dtype)
-    else:
-        blocks["mlp"] = layers.init_swiglu(d, cfg.d_ff, generator, device, L,
-                                           dtype)
+    blocks = _init_blocks(cfg, generator, device, (cfg.n_layers,), dtype)
+    dev = blocks["attn_norm"].device
     params = {"embed": layers.scaled_normal((V, d), 0.02, generator, device,
                                             dtype),
               "blocks": blocks,
@@ -209,6 +224,12 @@ def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
         params["lm_head"] = layers.init_linear(d, V, generator, device, (),
                                                dtype)
     return LM(cfg, params)
+
+
+def lm_param_shapes(cfg: LMConfig, dtype=torch.float32) -> LM:
+    """The parameter tree on ``meta`` (shapes and dtypes, no allocation) —
+    the dry run's stand-in for the reference's ``ShapeDtypeStruct`` tree."""
+    return init_lm(cfg, device="meta", dtype=dtype)
 
 
 # --------------------------------------------------------------- forward ----
@@ -337,8 +358,8 @@ class KVCache:
         return self.k.shape[2]
 
 
-def cache_shapes(cfg: LMConfig, batch: int, capacity: int
-                 ) -> tuple[tuple, tuple]:
+def _cache_dims(cfg: LMConfig, batch: int, capacity: int
+                ) -> tuple[tuple, tuple]:
     L = cfg.n_layers
     if cfg.attn == "mla":
         return ((L, batch, capacity, cfg.mla.kv_lora_rank),
@@ -349,9 +370,16 @@ def cache_shapes(cfg: LMConfig, batch: int, capacity: int
 
 def init_cache(cfg: LMConfig, batch: int, capacity: int,
                dtype=torch.bfloat16, device="cuda") -> KVCache:
-    ks, vs = cache_shapes(cfg, batch, capacity)
+    ks, vs = _cache_dims(cfg, batch, capacity)
     return KVCache(k=torch.zeros(ks, dtype=dtype, device=device),
                    v=torch.zeros(vs, dtype=dtype, device=device), length=0)
+
+
+def cache_shapes(cfg: LMConfig, batch: int, capacity: int,
+                 dtype=torch.bfloat16) -> KVCache:
+    """The cache on ``meta`` (shapes and dtypes, no allocation) — the
+    reference's ``ShapeDtypeStruct`` tree."""
+    return init_cache(cfg, batch, capacity, dtype, device="meta")
 
 
 def _write_token(cache_layer: torch.Tensor, new: torch.Tensor, length: int):

@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Iterator
 
 from torch.profiler import record_function
@@ -40,8 +40,12 @@ class Span:
 
 
 class SpanTracer:
-    def __init__(self, enabled: bool = True):
+    def __init__(self, enabled: bool = True, annotate: bool | None = None):
+        """``annotate=False`` keeps the spans out of ``torch.profiler``
+        traces (no ``record_function`` range); None or True opens one a
+        span."""
         self.enabled = enabled
+        self._annotate = annotate is None or bool(annotate)
         self._base_ns = time.perf_counter_ns()
         self._depth = 0
         self.spans: list[Span] = []   # completion order
@@ -55,7 +59,8 @@ class SpanTracer:
         self._depth += 1
         t0 = time.perf_counter_ns()
         try:
-            with record_function(name):
+            with (record_function(name) if self._annotate
+                  else nullcontext()):
                 yield
         finally:
             self._depth = depth

@@ -1246,3 +1246,93 @@ def test_sharded_lane_engine_on_the_card_matches_cpu(cuda, knobs):
         for k in ("rounds", "messages"):
             np.testing.assert_array_equal(a.epoch_stats[k],
                                           b.epoch_stats[k])
+
+
+# ------------------------------------------------- the straggler bound --
+def _bounded_case(rend, lanes, device):
+    """A layout for ``rend`` on ``device`` and the epoch it runs, with a
+    source (or ``lanes`` sources) and its ADD frontier."""
+    from repro_torch.core import frontier, ingest
+    from repro_torch.core.backends import ellpack as ell
+    from repro_torch.core.backends import sliced as sl
+    from repro_torch.core.state import EdgePool, SSSPState
+    if rend == "ellpack":
+        n, src, dst, w = generators.erdos_renyi(4096, 40000, seed=4)
+    else:
+        n, src, dst, w = generators.power_law_hubs(4096, 40000, n_hubs=4,
+                                                   seed=5, orientation="in")
+    alloc = ingest.make_allocator(len(src))
+    plan = alloc.plan_adds(src, dst, w)
+    src, dst, w = alloc.active_coo()
+    if rend == "ellpack":
+        idx, ew, _ = ell.EllPlanner(n, init_k=1).rebuild_host(src, dst, w)
+        idx, ew = (torch.from_numpy(a).to(device) for a in (idx, ew))
+
+        def epoch(s, f, kernel, **kw):
+            return ell.ell_relax_until_converged(s, idx, ew, f,
+                                                 use_kernel=kernel, **kw)
+    elif rend.startswith("sliced"):
+        pl = sl.SlicedEllPlanner(n, slice_rows=64, hub_k=16)
+        st = sl.SlicedEllState.from_host(pl, pl.rebuild_host(src, dst, w),
+                                         device)
+        fused = rend == "sliced_fused"
+
+        def epoch(s, f, kernel, **kw):
+            return sl.sliced_relax_until_converged(
+                s, st, f, num_vertices=n, use_kernel=kernel and not fused,
+                use_fused=fused and kernel, **kw)
+    else:
+        out = frontier.OutAdjacency(n, device, hub_k=16)
+        out.apply_adds(plan, alloc)
+        act = np.ones(len(src), bool)
+        pool = EdgePool(*(torch.from_numpy(a).to(device) for a in (
+            src.astype(np.int32), dst.astype(np.int32),
+            w.astype(np.float32), act)))
+        caps = frontier.capacity_ladder(n, 256)
+
+        def epoch(s, f, kernel, **kw):
+            return frontier.sparse_relax_until_converged(
+                s, pool, out.state, f, num_vertices=n, caps=caps,
+                use_kernel=kernel, **kw)[:2]
+    sources = (0, 1, 2, 3)[:lanes] if lanes else (0,)
+    s = (SSSPState.init_batched(n, sources, device) if lanes
+         else SSSPState.init(n, 0, device))
+    f = torch.zeros(n, dtype=torch.bool, device=device)
+    f[list(sources)] = True
+    return epoch, s, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [0, 4])
+@pytest.mark.parametrize("rend,kernel_fn", [
+    ("ellpack", ellpack_relax), ("sliced", ellpack_relax),
+    ("sliced_fused", fused_sliced_relax), ("sparse", gathered_rows_relax)])
+def test_bounded_epochs_on_kernels_match_plain_version(cuda, rend,
+                                                       kernel_fn, lanes):
+    """``max_rounds`` 1 and 4, re-issued with ``dist < dist before`` until
+    nothing improves: on K1 (dense ELL, and once per width run), K2 and K3
+    and their lane forms, every issue bit-identical to the plain versions
+    on the card, and the sequence to the unbounded epoch."""
+    epoch, s0, f0 = _bounded_case(rend, lanes, cuda)
+    want, wst = epoch(s0, f0, False)
+    for max_rounds in (1, 4):
+        s, f, issued = s0, f0, 0
+        kernel_fn.launches = kernel_fn.lane_launches = 0
+        while True:
+            got, st = epoch(s, f, True, max_rounds=max_rounds)
+            plain, pst = epoch(s, f, False, max_rounds=max_rounds)
+            for a, b in ((got.dist, plain.dist), (got.parent, plain.parent),
+                         (st.messages, pst.messages)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            np.testing.assert_array_equal(st.rounds, pst.rounds)
+            assert np.max(st.rounds) <= max_rounds
+            issued += 1
+            improved = got.dist < s.dist
+            s = got
+            if not bool(improved.any()):
+                break
+            f = improved
+        assert issued > 1
+        assert (kernel_fn.lane_launches if lanes else kernel_fn.launches) > 0
+        torch.testing.assert_close(s.dist, want.dist, rtol=0, atol=0)
+        torch.testing.assert_close(s.parent, want.parent, rtol=0, atol=0)

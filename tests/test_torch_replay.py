@@ -346,7 +346,8 @@ def test_power_law_hubs_matches_reference_in_hubs(n, m, n_hubs, seed):
     """The example's ``--power-law`` stream: the port's generator equals the
     reference's in-degree-hub orientation."""
     from repro_torch.graphs import generators as tgen
-    got = tgen.power_law_hubs(n, m, n_hubs=n_hubs, seed=seed)
+    got = tgen.power_law_hubs(n, m, n_hubs=n_hubs, seed=seed,
+                              orientation="in")
     want = generators.power_law_hubs(n, m, n_hubs=n_hubs, seed=seed,
                                      orientation="in")
     assert got[0] == want[0]
@@ -354,15 +355,18 @@ def test_power_law_hubs_matches_reference_in_hubs(n, m, n_hubs, seed):
         np.testing.assert_array_equal(a, b)
 
 
-def test_dataset_load_errors_exit_2(tmp_path, capsys):
+def test_dataset_load_errors_exit_2(tmp_path, capsys, monkeypatch):
     bad = tmp_path / "bad.txt"
     bad.write_text("1 2\n3\n")
     with pytest.raises(datasets.DatasetFormatError):
         datasets.parse_edge_list(str(bad))
     with pytest.raises(ValueError, match="window_frac"):
         datasets.dataset_to_trace(str(bad), window_frac=0.0)
+    # a url goes through the verified cache: one that cannot be read (a
+    # file:// url of a missing file; no network) exits 2 as well
+    monkeypatch.setenv("REPRO_DATASET_CACHE", str(tmp_path / "cache"))
     for path in (str(tmp_path / "missing.txt"), str(bad),
-                 "https://example.invalid/edges.txt"):
+                 (tmp_path / "gone.txt").as_uri()):
         with pytest.raises(SystemExit) as ei:
             datasets.load_dataset_or_exit(path)
         assert ei.value.code == 2

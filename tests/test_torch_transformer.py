@@ -188,7 +188,8 @@ def test_decode_at_capacity_clamps_like_the_reference(arch):
     jc, tc = R.configs(arch, "f32")
     jp = R.jax_params(arch)
     cap = 6
-    ks, vs = tfm.cache_shapes(tc, 2, cap)
+    meta = tfm.cache_shapes(tc, 2, cap)
+    ks, vs = meta.k.shape, meta.v.shape
     rng = np.random.default_rng(4)
     k0 = rng.standard_normal(ks).astype(np.float32)
     v0 = rng.standard_normal(vs).astype(np.float32)
