@@ -39,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import delete as del_mod
 from repro_torch.core import ingest, relax
 from repro_torch.core.relax import RelaxStats
@@ -172,7 +173,8 @@ def run_drain(dist: torch.Tensor, parent: torch.Tensor, pend: PendingState,
     nothing to pull gets no improvement from it), then threshold-paced
     waves: the bucket limit is recomputed from each lane's minimum pending
     distance every wave, so settling the lowest bucket and advancing to
-    the next is emergent."""
+    the next is emergent.  The wave loop is the ``waves`` phase span of an
+    enabled epoch, as ``relax.converged_loop``'s."""
     any_pull = relax.host_flags(pend.pull)
     rounds = relax.no_rounds(dist) + any_pull
     push = pend.push
@@ -181,15 +183,21 @@ def run_drain(dist: torch.Tensor, parent: torch.Tensor, pend: PendingState,
         dist, parent, imp = pull_wave(dist, parent, pend.pull)
         push = push | imp
         msgs += imp.sum(-1)
-    while True:
-        go = relax.host_flags(push)   # the per-wave host sync
-        if not np.any(go):
-            return dist, parent, RelaxStats(rounds=rounds, messages=msgs)
-        active = bucket_active(dist, push, bucket_width)
-        dist, parent, improved = wave(dist, parent, active)
-        push = (push & ~active) | improved
-        msgs += improved.sum(-1)
-        rounds += go
+    waves = 0
+    with obs_mod.phase("waves") as span:
+        while True:
+            go = relax.host_flags(push)   # the per-wave host sync
+            if not np.any(go):
+                break
+            active = bucket_active(dist, push, bucket_width)
+            dist, parent, improved = wave(dist, parent, active)
+            push = (push & ~active) | improved
+            msgs += improved.sum(-1)
+            rounds += go
+            waves += 1
+        if span is not None:
+            span.iterations = waves
+    return dist, parent, RelaxStats(rounds=rounds, messages=msgs)
 
 
 def drained(sssp: SSSPState, pend: PendingState, dist: torch.Tensor,

@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import relax
 from repro_torch.core.relax import BIG, segment_min
 from repro_torch.core.state import INF, NO_PARENT, EdgePool, SSSPState
@@ -56,14 +57,21 @@ def _mark_loop(step: Step, aff: torch.Tensor, ptr: torch.Tensor,
     reference's loop condition; ``gate`` None = every lane).  One flag read
     per round.  A lane that stopped growing is a fixed point of ``step``
     and a gated-out lane has an empty seed, whose marking stays empty, so
-    the whole stack steps together and only the counts are per lane."""
+    the whole stack steps together and only the counts are per lane.
+    The loop is the ``mark`` phase span of an enabled epoch, its passes
+    the span's ``iterations``."""
     rounds = relax.no_rounds(aff)
     live = (np.ones(aff.shape[:-1], bool) if gate is None
             else np.asarray(gate))
-    while live.any():
-        aff, ptr, grew = step(aff, ptr)
-        rounds += live if aff.dim() == 2 else int(live)
-        live = live & relax.host(grew)
+    passes = 0
+    with obs_mod.phase("mark") as span:
+        while live.any():
+            aff, ptr, grew = step(aff, ptr)
+            rounds += live if aff.dim() == 2 else int(live)
+            live = live & relax.host(grew)
+            passes += 1
+        if span is not None:
+            span.iterations = passes
     return aff, rounds
 
 

@@ -246,7 +246,8 @@ class SSSPDelEngine(StreamEngineBase):
 
     # ------------------------------------------------------------------ adds
     def _ingest_adds(self, batch: ev.EventBatch) -> None:
-        plan = self.alloc.plan_adds(batch.src, batch.dst, batch.w)
+        with self.obs.phase("plan_adds"):
+            plan = self.alloc.plan_adds(batch.src, batch.dst, batch.w)
         if len(plan.slots) == 0:
             return
         with self.obs.epoch("add_epoch", events=len(plan.slots)):
@@ -254,17 +255,19 @@ class SSSPDelEngine(StreamEngineBase):
 
     def _add_epoch(self, plan: ingest.PlannedAdds) -> None:
         """One dispatched ADD epoch (one span, one flight record)."""
-        ingest.apply_adds(self.state.edges, *map(self._dev, ingest.pad_pow2(
-            plan.slots, plan.src, plan.dst, plan.w)))
-        # Frontier = tails of the inserted edges (paper Listing 3: the tail
-        # offers its distance to the head).
-        frontier = relax.frontier_from_vertices(self._dev(plan.src),
-                                                self.cfg.num_vertices)
-        self.backend.apply_adds(plan, self.alloc)
-        if self._sparse:
-            self._out.apply_adds(plan, self.alloc)
-        if self._auto and self.backend.blowup:
-            self._fallback_to_sliced()
+        with self.obs.phase("apply_adds"):
+            ingest.apply_adds(self.state.edges, *map(
+                self._dev, ingest.pad_pow2(plan.slots, plan.src, plan.dst,
+                                           plan.w)))
+            # Frontier = tails of the inserted edges (paper Listing 3: the
+            # tail offers its distance to the head).
+            frontier = relax.frontier_from_vertices(self._dev(plan.src),
+                                                    self.cfg.num_vertices)
+            self.backend.apply_adds(plan, self.alloc)
+            if self._sparse:
+                self._out.apply_adds(plan, self.alloc)
+            if self._auto and self.backend.blowup:
+                self._fallback_to_sliced()
         self.obs.note_layout(self.backend.layout_counters())
         tails = len(np.unique(plan.src))
         if self.obs.enabled:
@@ -301,13 +304,15 @@ class SSSPDelEngine(StreamEngineBase):
     # ------------------------------------------------------------------ dels
     def _ingest_dels(self, batch: ev.EventBatch) -> None:
         for gsrc, gdst in self._deletion_groups(batch):
-            slots, psrc, pdst = self.alloc.plan_dels(gsrc, gdst)
+            with self.obs.phase("plan_dels"):
+                slots, psrc, pdst = self.alloc.plan_dels(gsrc, gdst)
             if len(slots) == 0:
                 continue
             with self.obs.epoch("del_epoch", events=len(slots)):
                 slots_p, psrc_p, pdst_p = ingest.pad_pow2(slots, psrc, pdst)
                 if self._sparse:
-                    self._out.apply_dels(psrc_p, pdst_p)
+                    with self.obs.phase("apply_dels"):
+                        self._out.apply_dels(psrc_p, pdst_p)
                 if self.bucketed:
                     self._lazy_del(slots_p, psrc_p, pdst_p)
                 else:
@@ -318,15 +323,17 @@ class SSSPDelEngine(StreamEngineBase):
     def _lazy_del(self, slots_p: np.ndarray, psrc_p: np.ndarray,
                   pdst_p: np.ndarray) -> None:
         """Bucketed deletion: deactivate + seed + mark + invalidate, the
-        recomputation deferred to the drain."""
-        self.backend.apply_dels(pdst_p, psrc_p)
+        recomputation deferred to the drain: ``buckets.lazy_delete``'s two
+        steps, its deactivation under the ``apply_dels`` phase."""
+        with self.obs.phase("apply_dels"):
+            self.backend.apply_dels(pdst_p, psrc_p)
+            ingest.apply_dels(self.state.edges, self._dev(slots_p))
         # the affected subtree's size is device-only knowledge; pin the
         # pending bound to N so the "auto" drain routes dense
         self._pend_bound = self.cfg.num_vertices
-        self.state.sssp, _, self._pend, dstats = buckets.lazy_delete(
-            self.state.sssp, self.state.edges, self._pend,
-            self._dev(psrc_p), self._dev(pdst_p), self._dev(slots_p),
-            num_vertices=self.cfg.num_vertices,
+        self.state.sssp, self._pend, dstats = buckets.lazy_invalidate(
+            self.state.sssp, self._pend, self._dev(psrc_p),
+            self._dev(pdst_p), num_vertices=self.cfg.num_vertices,
             use_doubling=self.cfg.use_doubling)
         self._accumulate_delete(dstats)
 
@@ -334,11 +341,12 @@ class SSSPDelEngine(StreamEngineBase):
                    pdst_p: np.ndarray) -> None:
         """Rounds deletion: seed from the *pre-deletion* tree (per lane on a
         batched engine), deactivate, invalidate and recompute."""
-        seed = del_mod.deletion_seed_for_edges(
-            self.state.sssp, self._dev(psrc_p), self._dev(pdst_p),
-            self.cfg.num_vertices)
-        ingest.apply_dels(self.state.edges, self._dev(slots_p))
-        self.backend.apply_dels(pdst_p, psrc_p)
+        with self.obs.phase("apply_dels"):
+            seed = del_mod.deletion_seed_for_edges(
+                self.state.sssp, self._dev(psrc_p), self._dev(pdst_p),
+                self.cfg.num_vertices)
+            ingest.apply_dels(self.state.edges, self._dev(slots_p))
+            self.backend.apply_dels(pdst_p, psrc_p)
         # the affected region's size is device-only knowledge, so only
         # "sparse" routes deletions sparse; "auto" keeps them dense
         if self.cfg.frontier_mode == "sparse":

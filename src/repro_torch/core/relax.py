@@ -35,11 +35,13 @@ the re-issued sequence reaches the unbounded epoch's fixpoint.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.core.state import INF, EdgePool, SSSPState
 
 BIG = 2**31 - 1   # "no candidate" key of the smallest-src-id pass
@@ -53,8 +55,16 @@ class RelaxStats(NamedTuple):
 def host(flags: torch.Tensor) -> bool | np.ndarray:
     """Per-lane flags read back to the host in ONE sync: a bool for a 0-d
     tensor, a bool[S] array for an [S] one.  Every loop condition of the
-    eager epochs is read through here or ``host_flags``."""
-    return bool(flags) if flags.dim() == 0 else flags.cpu().numpy()
+    eager epochs is read through here or ``host_flags``; inside an enabled
+    epoch the read and the host time it blocked count on the innermost
+    open span (``repro_torch.obs``)."""
+    obs = obs_mod.ACTIVE
+    if obs is None:
+        return bool(flags) if flags.dim() == 0 else flags.cpu().numpy()
+    t0 = time.perf_counter_ns()
+    out = bool(flags) if flags.dim() == 0 else flags.cpu().numpy()
+    obs.tracer.read(time.perf_counter_ns() - t0)
+    return out
 
 
 def host_flags(mask: torch.Tensor) -> bool | np.ndarray:
@@ -133,19 +143,24 @@ def converged_loop(dist: torch.Tensor, parent: torch.Tensor,
     count: stopping the loop after ``max_rounds`` waves freezes each lane
     where its own bound would, and no lane past its bound is relaxed
     again.  The bound is checked before the flag read, so a bounded epoch
-    reads the host no more often than an unbounded one."""
+    reads the host no more often than an unbounded one.  The loop is the
+    ``waves`` phase span of an enabled epoch, its waves the span's
+    ``iterations``."""
     rounds = no_rounds(dist)
     msgs = torch.zeros(dist.shape[:-1], dtype=torch.int64, device=dist.device)
     frontier = frontier.expand(dist.shape)   # an ADD frontier is shared
     waves = 0
-    while not (max_rounds and waves >= max_rounds):
-        go = host_flags(frontier)   # the per-wave host sync
-        if not np.any(go):
-            break
-        dist, parent, frontier = wave(dist, parent, frontier)
-        msgs += frontier.sum(-1)
-        rounds += go
-        waves += 1
+    with obs_mod.phase("waves") as span:
+        while not (max_rounds and waves >= max_rounds):
+            go = host_flags(frontier)   # the per-wave host sync
+            if not np.any(go):
+                break
+            dist, parent, frontier = wave(dist, parent, frontier)
+            msgs += frontier.sum(-1)
+            rounds += go
+            waves += 1
+        if span is not None:
+            span.iterations = waves
     return dist, parent, rounds, msgs
 
 

@@ -222,17 +222,19 @@ class StreamEngineBase:
         lane on a batched engine (``route_of``)."""
         chunks = [log] if hasattr(log, "runs") else log
         results: list[QueryResult] = []
-        for chunk in chunks:
-            for batch in chunk.runs():
-                if batch.kind == ev.ADD:
-                    self._ingest_adds(batch)
-                elif batch.kind == ev.DEL:
-                    self._ingest_dels(batch)
-                else:
-                    res = self.query(source=self.route_of(batch.query_source))
-                    results.append(res)
-                    if on_query is not None:
-                        on_query(res)
+        with self.obs.phase("ingest_log"):
+            for chunk in chunks:
+                for batch in chunk.runs():
+                    if batch.kind == ev.ADD:
+                        self._ingest_adds(batch)
+                    elif batch.kind == ev.DEL:
+                        self._ingest_dels(batch)
+                    else:
+                        res = self.query(
+                            source=self.route_of(batch.query_source))
+                        results.append(res)
+                        if on_query is not None:
+                            on_query(res)
         return results
 
     def metrics_snapshot(self) -> dict[str, Any]:
@@ -241,8 +243,10 @@ class StreamEngineBase:
         ``n_messages``), the counter registry's snapshot (its one
         device->host copy), histogram summaries and dimension attribution
         derived from that same snapshot, span counts and flight-recorder
-        occupancy.  An armed watchdog reviews the snapshot for divergence;
-        its findings land in the *next* snapshot's counters (§10.8)."""
+        occupancy.  ``phases`` (port-only) holds the tracer's per-name span
+        totals (``SpanTracer.phase_table``).  An armed watchdog reviews the
+        snapshot for divergence; its findings land in the *next* snapshot's
+        counters (§10.8)."""
         if self.obs.enabled:
             self._obs_pre_snapshot()
             self.obs.flush_histograms()
@@ -255,6 +259,8 @@ class StreamEngineBase:
             "histograms": hist_mod.summarize(counters),
             "attribution": self.obs.counters.attribution(counters),
             "spans": self.obs.tracer.span_counts(),
+            # port-only: per-name totals of the spans (phases and epochs)
+            "phases": self.obs.tracer.phase_table(),
             "flight": {"records": self.obs.recorder.total,
                        "capacity": self.obs.recorder.capacity},
         }

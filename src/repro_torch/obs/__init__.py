@@ -37,19 +37,30 @@ drive:
     around every ``epoch()`` region: stalls fire a structured warning +
     the one-shot dump from a sampler thread, slow-epoch/frontier
     thresholds are checked synchronously after each epoch.
+  * ``with obs.phase(name):`` opens a ``phase`` span (``spans.py``) inside
+    an epoch or around ``ingest_log``'s host work.  The loops of
+    ``core/relax.py``, ``core/delete.py`` and ``core/buckets.py`` reach the
+    running epoch's ``EngineObs`` through the module slot ``ACTIVE`` (set
+    by ``epoch()`` on entry, restored on exit) with the module-level
+    ``phase(name)``, and ``relax.host`` counts each read and its wait on
+    that engine's tracer (``SpanTracer.read``).  The slot is one per
+    process: an epoch of a disabled engine run inside an enabled engine's
+    epoch counts on the enabled one.  ``metrics_snapshot()["phases"]`` is
+    the tracer's ``phase_table()``, outside the reference's surface.
 
-Disabled (the default) every hook no-ops.  Enabled, the hooks add no
-host read to ingest or drains: the only read points are ``snapshot()``
-(one device->host copy) and ``query()``.  The reference gates
-instrumented ingest at >= 0.95x uninstrumented (§10.4); the port has no
-gate yet.
+Disabled (the default) every hook no-ops: ``epoch()`` and ``phase()``
+return one shared null context, and a loop's read costs one ``is None``
+test.  Enabled, the hooks add no host read to ingest or drains: the only
+read points are ``snapshot()`` (one device->host copy) and ``query()``.
+The reference gates instrumented ingest at >= 0.95x uninstrumented
+(§10.4); the port has no gate yet.
 """
 from __future__ import annotations
 
 import os
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import AbstractContextManager, contextmanager
 from typing import Any, Iterator
 
 import numpy as np
@@ -58,15 +69,29 @@ import torch
 from repro_torch.obs import hist as hist_mod
 from repro_torch.obs.counters import CounterRegistry
 from repro_torch.obs.recorder import FlightRecorder
-from repro_torch.obs.spans import (Span, SpanTracer, load_chrome_trace,
-                                   span_counts_of)
+from repro_torch.obs.spans import (ENGINE, NULL, PHASE, Span, SpanTracer,
+                                   load_chrome_trace, span_counts_of)
 from repro_torch.obs.watchdog import Watchdog, WatchdogConfig
 
 __all__ = [
     "CounterRegistry", "EngineObs", "FlightRecorder", "Span", "SpanTracer",
     "Watchdog", "WatchdogConfig", "load_chrome_trace", "out_path_or_exit",
-    "span_counts_of", "write_log_jsonl",
+    "phase", "span_counts_of", "write_log_jsonl",
 ]
+
+# the EngineObs of the innermost running enabled epoch (None outside every
+# one): the wave and marking loops find their engine's tracer here, so no
+# backend signature carries it
+ACTIVE: "EngineObs | None" = None
+
+
+def phase(name: str) -> AbstractContextManager:
+    """A ``phase`` span of the running epoch's engine, or the shared null
+    context outside every enabled epoch; yields the span's frame (None
+    when off), whose ``iterations`` a loop sets."""
+    obs = ACTIVE
+    return NULL if obs is None else obs.phase(name)
+
 
 # span kind -> counter name: every epoch span bumps its counter from the
 # SAME code path, which is what makes span counts and counters bit-consistent
@@ -97,15 +122,23 @@ class EngineObs:
         self._hist_base: dict[str, Any] = {}
         self._dumped = False
 
+    def epoch(self, kind: str, **attrs) -> AbstractContextManager:
+        """The context of one dispatched epoch (the shared null context
+        when disabled)."""
+        return self._epoch(kind, **attrs) if self.enabled else NULL
+
+    def phase(self, name: str) -> AbstractContextManager:
+        """A ``phase`` span (the shared null context when disabled)."""
+        return self.tracer.span(name, cat=PHASE) if self.enabled else NULL
+
     @contextmanager
-    def epoch(self, kind: str, **attrs) -> Iterator[None]:
-        if not self.enabled:
-            yield
-            return
+    def _epoch(self, kind: str, **attrs) -> Iterator[None]:
+        global ACTIVE
         wd = self.watchdog
         t0 = time.perf_counter()
         if wd is not None:
             wd.arm(kind)
+        outer, ACTIVE = ACTIVE, self
         try:
             with self.tracer.span(kind, **attrs):
                 yield
@@ -114,6 +147,7 @@ class EngineObs:
             self.dump_on_error(exc)
             raise
         finally:
+            ACTIVE = outer
             if wd is not None:
                 wd.disarm()
         wall = time.perf_counter() - t0
@@ -243,10 +277,12 @@ def _jsonable(v: Any) -> Any:
 
 
 def write_log_jsonl(engine, path: str) -> None:
-    """JSONL export (--log-json): every span line followed by one final
-    ``metrics_snapshot`` line — the machine-readable twin of --trace-out."""
+    """JSONL export (--log-json): every ``engine`` span line, as the
+    reference writes them, followed by one final ``metrics_snapshot`` line
+    (whose ``phases`` key holds the phase spans' totals) — the
+    machine-readable twin of --trace-out."""
     import json
-    lines = engine.obs.tracer.jsonl_lines()
+    lines = engine.obs.tracer.jsonl_lines(ENGINE)
     lines.append(json.dumps(
         {"kind": "metrics_snapshot", **_jsonable(engine.metrics_snapshot())}))
     with open(path, "w") as f:

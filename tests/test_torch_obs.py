@@ -20,7 +20,10 @@ subprocess cases wait for the sharded engine).
     only; every other histogram bucket for bucket);
   * per-lane snapshots of a ``sources=`` engine against the JAX batched
     engine's; host reads with observability on equal to those with it off,
-    epoch by epoch (the counter of test_torch_serving.py).
+    epoch by epoch (the counter of test_torch_serving.py);
+  * the port-only phase spans: their nesting, their counts against the
+    loops' passes and ``relax.host``'s calls, the phase table against the
+    Chrome export, the active-engine slot and the tracer's Unix clock.
 
 The JAX engines run ``sliced_fused=False`` and ``frontier_kernel=False``.
 Inputs are made from seeds with numpy.  Tolerance: 0.
@@ -42,12 +45,21 @@ from repro.core.engine import SSSPDelEngine as JaxEngine
 from repro.graphs import generators, window
 from repro.obs import hist as jhist
 from repro_torch import EngineConfig, SSSPDelEngine, make_engine
+from repro_torch import obs as obs_mod
+from repro_torch.core import buckets as buckets_mod
+from repro_torch.core import delete as del_mod
+from repro_torch.core import frontier as frontier_mod
+from repro_torch.core import relax
+from repro_torch.core.backends import ellpack as ell_mod
+from repro_torch.core.backends import sliced as sliced_mod
 from repro_torch.obs import (CounterRegistry, EngineObs, FlightRecorder,
                              SpanTracer, WatchdogConfig, load_chrome_trace,
                              out_path_or_exit, span_counts_of,
                              write_log_jsonl)
 from repro_torch.obs import _jsonable
 from repro_torch.obs import hist
+from repro_torch.obs.export import prometheus_text
+from repro_torch.obs.spans import phase_table, unix_offset_ns
 from test_torch_serving import READS, _count_reads
 
 SOURCES = (3, 17, 40)
@@ -741,3 +753,247 @@ def test_watchdog_stop_is_idempotent_and_joins_thread():
     wd.stop()
     assert wd._thread is None
     wd.stop()
+
+
+# ------------------------------------------------------------- phase spans --
+# each phase span's parent: the span open around it (None: top level)
+PHASE_PARENTS = {
+    "ingest_log": {None}, "plan_adds": {"ingest_log"},
+    "plan_dels": {"ingest_log"}, "apply_adds": {"add_epoch"},
+    "apply_dels": {"del_epoch"}, "mark": {"del_epoch", "drain"},
+    "waves": {"add_epoch", "del_epoch", "drain"},
+}
+PHASE_CASES = [("segment", "dense", "rounds"),
+               ("ellpack", "dense", "buckets"),
+               ("sliced-K2", "dense", "rounds"),
+               ("sliced", "sparse", "buckets"),
+               ("auto", "sparse", "rounds")]
+
+
+def _parents(spans) -> list:
+    """(span, its parent's name) of every complete span, from the nesting
+    of their intervals."""
+    out, stack = [], []
+    for s in sorted((s for s in spans if s.phase == "X"),
+                    key=lambda s: (s.t0_ns, s.depth)):
+        while stack and stack[-1].depth >= s.depth:
+            stack.pop()
+        out.append((s, stack[-1].name if stack else None))
+        stack.append(s)
+    return out
+
+
+@pytest.mark.parametrize("sources", [None, SOURCES])
+@pytest.mark.parametrize("backend,mode,schedule", PHASE_CASES)
+def test_phase_spans_nest_under_their_epochs_and_change_nothing(
+        backend, mode, schedule, sources):
+    """Every phase span opens under the span the table names, carries its
+    counts, and the instrumented engine stays bit-identical to its plain
+    twin (dist, parent at every query; rounds, messages)."""
+    n, cap, log = STREAM
+    kw, port_only = _knobs(backend, mode, schedule)
+    kw.update(sources=sources)
+    plain = _port(n, cap, **kw, **port_only)
+    inst = _port(n, cap, observability=True, **kw, **port_only)
+    for a, b in zip(_ingest(inst, log), _ingest(plain, log), strict=True):
+        np.testing.assert_array_equal(a.dist, b.dist)
+        np.testing.assert_array_equal(a.parent, b.parent)
+        assert str(a.epoch_stats) == str(b.epoch_stats)
+    np.testing.assert_array_equal(inst.n_rounds, plain.n_rounds)
+    np.testing.assert_array_equal(inst.n_messages, plain.n_messages)
+    seen = set()
+    for span, parent in _parents(inst.obs.tracer.spans):
+        if span.cat != "phase":
+            assert "reads" not in span.args
+            continue
+        seen.add(span.name)
+        assert parent in PHASE_PARENTS[span.name], (span.name, parent)
+        assert span.args["reads"] == span.reads >= 0
+        assert span.args["read_wait_ns"] == span.read_wait_ns >= 0
+        loop = span.name in ("waves", "mark")
+        assert ("iterations" in span.args) == loop
+        assert span.self_ns <= span.dur_ns
+    assert seen == set(PHASE_PARENTS)
+
+
+def test_no_phase_span_opens_with_observability_off(monkeypatch):
+    """Off, no span opens anywhere, the loops find no active engine, and
+    the epoch and phase hooks hand out one shared null context."""
+    def no_span(*a, **k):
+        raise AssertionError("a span opened with observability off")
+
+    monkeypatch.setattr(SpanTracer, "span", no_span)
+    n, cap, log = STREAM
+    eng = _port(n, cap, relax_backend="sliced", wave_schedule="buckets",
+                **BACKENDS["sliced"][1])
+    _ingest(eng, log)
+    assert obs_mod.ACTIVE is None and eng.obs.tracer.spans == []
+    assert eng.metrics_snapshot()["phases"] == {}
+    off = EngineObs(enabled=False)
+    assert off.epoch("add_epoch", events=1) is off.phase("waves") \
+        is obs_mod.phase("mark") is EngineObs().epoch("drain")
+
+
+@pytest.mark.parametrize("sources", [None, SOURCES])
+@pytest.mark.parametrize("backend,mode,schedule", PHASE_CASES)
+def test_phase_counts_equal_loop_passes_and_host_reads(
+        monkeypatch, backend, mode, schedule, sources):
+    """``waves`` iterations sum to the waves every loop driver runs,
+    ``mark`` iterations to the marking steps, and the table's reads to the
+    calls of ``relax.host`` (counted by wrapping each, here)."""
+    calls = {"waves": 0, "mark": 0, "host": 0}
+
+    def counted(fn, key):
+        def inner(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return inner
+
+    real_loop, real_drain = relax.converged_loop, buckets_mod.run_drain
+    real_mark, real_host = del_mod._mark_loop, relax.host
+
+    def loop(dist, parent, frontier, wave, **kw):
+        return real_loop(dist, parent, frontier, counted(wave, "waves"), **kw)
+
+    def drain(*a, wave, **kw):
+        return real_drain(*a, wave=counted(wave, "waves"), **kw)
+
+    def mark(step, aff, ptr, gate):
+        return real_mark(counted(step, "mark"), aff, ptr, gate)
+
+    for mod in (relax, frontier_mod, ell_mod, sliced_mod):
+        monkeypatch.setattr(mod, "converged_loop", loop)
+    monkeypatch.setattr(buckets_mod, "run_drain", drain)
+    monkeypatch.setattr(del_mod, "_mark_loop", mark)
+    monkeypatch.setattr(relax, "host", counted(real_host, "host"))
+    n, cap, log = STREAM
+    kw, port_only = _knobs(backend, mode, schedule)
+    inst = _port(n, cap, observability=True, sources=sources, **kw,
+                 **port_only)
+    _ingest(inst, log)
+    table = inst.metrics_snapshot()["phases"]
+    assert table["waves"]["iterations"] == calls["waves"] > 0
+    assert table["mark"]["iterations"] == calls["mark"] > 0
+    assert sum(r["reads"] for r in table.values()) == calls["host"]
+    assert table["waves"]["reads"] >= calls["waves"]
+    assert all(r["read_wait_ns"] >= 0 for r in table.values())
+
+
+def test_phase_table_agrees_with_the_chrome_export(tmp_path):
+    """``metrics_snapshot()["phases"]`` and the Chrome trace's ``phase``
+    events give the same counts, times and reads; the reference's span
+    counts, the JSONL log and the Prometheus text leave the phases out."""
+    n, cap, log = STREAM
+    kw, port_only = _knobs("sliced", "dense", "buckets")
+    eng = _port(n, cap, observability=True, **kw, **port_only)
+    _ingest(eng, log)
+    snap = eng.metrics_snapshot()
+    path = str(tmp_path / "t.json")
+    eng.obs.tracer.save_chrome(path)
+    events = load_chrome_trace(path)
+    got: dict = {}
+    for e in events:
+        if e["cat"] != "phase":
+            continue
+        row = got.setdefault(e["name"], dict(count=0, us=0.0, reads=0,
+                                             read_wait_ns=0, iterations=0))
+        row["count"] += 1
+        row["us"] += e["dur"]
+        for k in ("reads", "read_wait_ns", "iterations"):
+            row[k] += e["args"].get(k, 0)
+    assert set(got) == set(PHASE_PARENTS)
+    for name, row in got.items():
+        want = snap["phases"][name]
+        assert row["count"] == want["count"]
+        assert row["us"] * 1e3 == pytest.approx(want["ns"], abs=row["count"])
+        for k in ("reads", "read_wait_ns", "iterations"):
+            assert row[k] == want[k], (name, k)
+    assert snap["spans"] == span_counts_of(events) == \
+        eng.obs.tracer.span_counts()
+    assert not set(PHASE_PARENTS) & set(snap["spans"])
+    rest = {k: v for k, v in snap.items() if k != "phases"}
+    assert prometheus_text(snap) == prometheus_text(rest)
+    lines = [json.loads(x) for x in eng.obs.tracer.jsonl_lines()]
+    assert sum(x.get("cat") == "phase" for x in lines) == \
+        sum(r["count"] for r in got.values())
+    assert len(eng.obs.tracer.jsonl_lines("engine")) == \
+        sum(snap["spans"].values())
+
+
+def test_spans_count_reads_and_self_time_on_the_innermost_span():
+    """A read counts on the innermost open span, phase or epoch; a span's
+    self time is its time less its children's; only phase spans carry the
+    counts in their ``args``, and only loops ``iterations``."""
+    tr = SpanTracer(enabled=True)
+    with tr.span("add_epoch", events=3):
+        tr.read(5)
+        with tr.span("waves", cat="phase") as frame:
+            tr.read(7)
+            tr.read(3)
+            frame.iterations = 2
+        with tr.span("apply_adds", cat="phase"):
+            pass
+    waves, apply_, epoch = tr.spans     # completion order
+    assert epoch.args == {"events": 3}
+    assert (epoch.reads, epoch.read_wait_ns) == (1, 5)
+    assert waves.args == {"reads": 2, "read_wait_ns": 10, "iterations": 2}
+    assert apply_.args == {"reads": 0, "read_wait_ns": 0}
+    assert epoch.self_ns == epoch.dur_ns - waves.dur_ns - apply_.dur_ns
+    assert waves.self_ns == waves.dur_ns and waves.depth == 1
+    assert tr.span_counts() == {"add_epoch": 1}
+    table = phase_table(tr.spans)
+    assert table["waves"] == dict(count=1, ns=waves.dur_ns,
+                                  self_ns=waves.dur_ns, reads=2,
+                                  read_wait_ns=10, iterations=2)
+    assert table["add_epoch"]["iterations"] == 0
+    tr.read(1)                 # outside every span: nowhere to count
+    assert sum(r["reads"] for r in tr.phase_table().values()) == 3
+
+
+def test_epoch_sets_and_restores_the_active_engine(capsys):
+    """``epoch()`` points the loops at its engine and restores the outer
+    one on exit, on an exception too; a read counts on the innermost
+    engine's innermost span."""
+    a, b = EngineObs(enabled=True), EngineObs(enabled=True)
+    assert obs_mod.ACTIVE is None
+    with a.epoch("add_epoch"):
+        assert obs_mod.ACTIVE is a
+        with b.epoch("del_epoch"):
+            assert obs_mod.ACTIVE is b
+            with obs_mod.phase("mark"):
+                assert relax.host(torch.tensor(True)) is True
+        assert obs_mod.ACTIVE is a
+        relax.host_flags(torch.zeros(3, 4, dtype=torch.bool))
+    assert obs_mod.ACTIVE is None
+    assert b.tracer.phase_table()["mark"]["reads"] == 1
+    assert a.tracer.phase_table()["add_epoch"]["reads"] == 1
+    with pytest.raises(RuntimeError):
+        with a.epoch("drain"):
+            raise RuntimeError("boom")
+    assert obs_mod.ACTIVE is None
+    assert "boom" in capsys.readouterr().err
+
+
+def test_to_unix_ns_round_trips_against_time_ns():
+    """The tracer's Unix offset maps a ``perf_counter_ns`` stamp to within
+    a millisecond of ``time.time_ns``, is sampled again at every readout,
+    and places the Chrome trace's ts 0."""
+    tr = SpanTracer(enabled=True)
+    with tr.span("add_epoch"):
+        pass
+    a = time.perf_counter_ns()
+    u = time.time_ns()
+    b = time.perf_counter_ns()
+    assert tr.to_unix_ns(a) - 10**6 <= u <= tr.to_unix_ns(b) + 10**6
+    assert abs(unix_offset_ns() - tr.offsets[0][1]) < 10**6
+    n = len(tr.offsets)
+    tr.phase_table()
+    tr.jsonl_lines()
+    doc = tr.to_chrome()
+    assert len(tr.offsets) == n + 3
+    meta = doc["metadata"]
+    assert meta["unix_offset_ns"] == tr.offsets[-1][1]
+    assert doc["baseTimeNanoseconds"] == meta["base_unix_ns"] == \
+        tr.to_unix_ns(tr._base_ns)
+    ev, = doc["traceEvents"]
+    assert ev["ts"] >= 0 and ev["cat"] == "engine"
