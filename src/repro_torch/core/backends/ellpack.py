@@ -187,15 +187,29 @@ class EllPlanner:
 
         Returns kpos i32[m] (and advances the fill marks), or None when any
         row would overflow K — the caller must rebuild instead.
+
+        Invariant: ``fill[r] <= K`` on every row (a rebuild sets fill to the
+        in-degree, which ``ell_from_coo`` holds within K; an append advances
+        fill to at most K).  A row the batch does not touch therefore cannot
+        overflow, and the check reads the batch's rows alone: the batch
+        overflows iff its largest cell ``kpos`` reaches K.  That costs the
+        rank's sort, O(m log m), and nothing of the row count.  A batch
+        large against the rows (m log2 m >= n, where the dense count costs
+        no more than that sort: the base-window load) is first checked by
+        one dense count, O(n + m), so an overflowing one returns before it
+        pays the sort.
         """
         m = len(rows)
         if m == 0:
             return np.empty(0, np.int32)
         rows = np.asarray(rows, np.int64) - self.row0
-        counts = np.bincount(rows, minlength=self.n)
-        if int((self.fill[:self.n] + counts[:self.n]).max(initial=0)) > self.k:
-            return None
+        if m * m.bit_length() >= self.n:
+            counts = np.bincount(rows, minlength=self.n)[:self.n]
+            if int((self.fill[:self.n] + counts).max(initial=0)) > self.k:
+                return None
         kpos = self.fill[rows] + rank_within_rows(rows)
+        if int(kpos.max()) >= self.k:
+            return None
         np.maximum.at(self.fill, rows, kpos + 1)
         return kpos.astype(np.int32)
 

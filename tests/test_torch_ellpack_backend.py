@@ -8,6 +8,8 @@ the whole ``EllState`` arrays after every batch, and the ELL epochs
 Inputs are made from seeds with numpy and fed to both packages.  Tolerance:
 0 — every array and stat bit-identical.
 """
+import tracemalloc
+
 import numpy as np
 import pytest
 import torch
@@ -80,6 +82,8 @@ def test_planner_and_patch_ops_track_reference(seed, block_rows, init_k):
                 jstate = jell.ell_update_min(jstate, *_j(*batch))
         np.testing.assert_array_equal(pl.fill, jpl.fill)
         assert (pl.k, pl.rebuilds) == (jpl.k, jpl.rebuilds)
+        # the invariant plan_appends' overflow check rests on
+        assert (pl.fill <= pl.k).all()
         _same_ell(state, jstate)
 
         d = int(rng.integers(1, 12))
@@ -93,6 +97,83 @@ def test_planner_and_patch_ops_track_reference(seed, block_rows, init_k):
             jstate = jell.ell_delete(jstate, *_j(rows_p, src_p))
             _same_ell(state, jstate)
     assert pl.rebuilds >= 1, "rebuild path not exercised"
+
+
+def _planner_batches(case, n, k, rng):
+    """Row batches (window-local ids) for one case of
+    ``test_plan_appends_matches_reference``; the planner starts at K = k."""
+    def rand(m):
+        return rng.integers(0, n, m)
+    r, r2 = 17, n - 3
+    if case == "exact_k":          # r reaches K over two batches, r2 in one
+        return [np.r_[rand(5), [r] * (k // 2)], np.r_[[r] * (k - k // 2),
+                rand(7)], np.r_[rand(3), [r2] * k], rand(40)]
+    if case == "k_plus_1":         # r at K, then one more: rebuild
+        return [np.full(k, r), rand(9), np.r_[rand(2), r], np.full(k, r),
+                rand(64)]
+    if case == "many_into_one":    # 64 arcs into one row, twice
+        return [np.r_[rand(3), [r] * 61], rand(20), np.full(64, r),
+                np.full(64, r)]
+    if case == "empty":
+        return [rand(0), rand(12), rand(0), np.full(k, r), rand(0)]
+    if case == "dense":            # more than n/2 rows: the dense count
+        return [rng.permutation(n)[:n // 2 + 1], rand(30),
+                np.r_[rng.permutation(n)[:n // 2], [r] * (k + 1)], rand(64)]
+    raise ValueError(case)
+
+
+@pytest.mark.filterwarnings("ignore:dense-ELL rebuild allocates")
+@pytest.mark.parametrize("case,row0", [
+    ("exact_k", 0), ("k_plus_1", 0), ("many_into_one", 0), ("empty", 0),
+    ("dense", 0), ("k_plus_1", 3 << 16), ("dense", 5 << 16)])
+def test_plan_appends_matches_reference(case, row0, monkeypatch):
+    """The overflow check over a planner much larger than its batches:
+    kpos or None, fill, K and rebuilds equal the reference's after every
+    call (a None rebuilds both from the arcs so far).  A batch far smaller
+    than the rows allocates nothing of the row count; a batch past n/2
+    rows that overflows returns before the rank's sort, as the reference
+    does.  ``row0 > 0`` is the window-local planner ``ShardedEllpack``
+    builds."""
+    n, k = 1 << 16, 4
+    rng = np.random.default_rng(len(case) + row0)
+    pl = ell.EllPlanner(n, block_rows=256, init_k=k, row0=row0)
+    jpl = jell.EllPlanner(n, block_rows=256, init_k=k, row0=row0)
+    sorts = []
+    rank = ell.rank_within_rows
+    monkeypatch.setattr(ell, "rank_within_rows",
+                        lambda rows: sorts.append(len(rows)) or rank(rows))
+    dst = np.empty(0, np.int64)
+    outcomes = []
+    for batch in _planner_batches(case, n, k, rng):
+        rows = batch.astype(np.int64) + row0
+        dst = np.r_[dst, rows]
+        m, sorted_before = len(rows), len(sorts)
+        tracemalloc.start()
+        try:
+            kpos = pl.plan_appends(rows)
+            peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        jkpos = jpl.plan_appends(rows)
+        assert (kpos is None) == (jkpos is None)
+        if kpos is None:
+            if m > n // 2:
+                assert len(sorts) == sorted_before, "sorted a dense overflow"
+            src = np.arange(len(dst)) % n + row0
+            w = np.ones(len(dst), np.float32)
+            for a, b in zip(pl.rebuild_host(src, dst, w),
+                            jpl.rebuild_host(src, dst, w)):
+                np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_array_equal(kpos, jkpos)
+            assert kpos.dtype == np.int32
+        if 64 * m <= n:
+            assert peak < n, f"{peak} B traced for {m} rows"
+        np.testing.assert_array_equal(pl.fill, jpl.fill)
+        assert (pl.k, pl.rebuilds) == (jpl.k, jpl.rebuilds)
+        assert (pl.fill <= pl.k).all()
+        outcomes.append(kpos is None)
+    assert any(outcomes) == (case not in ("exact_k", "empty")), outcomes
 
 
 def _block(seed, n=60, m=300):
