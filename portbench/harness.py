@@ -4,8 +4,10 @@ the plain reference, and the metrics.
 Everything that belongs to one configuration, traffic mix or metric is a
 file of its own, found by the name ``BENCHMARK.json`` gives it:
 ``configs/<config>.json`` (named by the configuration's ``file``),
-``traffic/<traffic>.json`` and ``metrics/<metric>.py`` (a ``read(run)``
-that returns the metric's value, or None where it finds nothing to read).
+``traffic/<traffic>.json``, ``metrics/<metric>.py`` (a ``read(run)``
+that returns the metric's value, or None where it finds nothing to read)
+and, for a graph that is neither ``kron`` nor ``urand``,
+``generators/<generator>.py`` (see ``graphs``).
 
 The run, in order:
   1. set-up: the graph and its sliding-window stream made on the device
@@ -24,7 +26,9 @@ The run, in order:
      (``reference.judge``), after the program's state is freed.
 With ``trace`` the engine's observability is on and the window runs under
 ``torch.profiler`` (CUDA activity) and a count of the device-to-host reads
-outside ``query``; the per-layer metrics are read from that run alone.
+outside ``query``; the per-layer metrics are read from that run alone,
+which also hands the readers the program's own counters and phase spans
+over the window (``Run.counters``, ``Run.phases``).
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import devtrace, graphs, reference, stream as stream_mod
+from portbench import devtrace, graphs, phases, reference
+from portbench import stream as stream_mod
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -115,6 +120,11 @@ class Run:
     host_reads: int | None = None     # device-to-host reads outside query
     device: devtrace.DeviceTrace | None = None
     idle: dict[str, float] | None = None   # idle seconds by host span
+    # the program's counters (``obs.counters.snapshot()``) at the window's
+    # end less at its start, scalars and vectors; histogram samples the
+    # program has not folded yet are not in them
+    counters: dict | None = None
+    phases: dict | None = None        # phases.window_table of the window
 
 
 class _HostReads:
@@ -265,7 +275,7 @@ def run_cell(config: dict, traffic: dict, *, seed: int, seconds: float,
     counting = contextlib.ExitStack()
     if trace:
         from torch.profiler import ProfilerActivity, profile
-        rebuilds0 = eng.obs.counters.snapshot().get("rebuilds", 0)
+        counters0 = eng.obs.counters.snapshot()
         n_spans0 = len(eng.obs.tracer.spans)
         # CUDA activity only: the host's ops stay unrecorded (a CPU run,
         # as in the tests, records its ops and finds no device records)
@@ -328,6 +338,7 @@ def run_cell(config: dict, traffic: dict, *, seed: int, seconds: float,
         prof.stop()
         print(f"trace: profiler stopped in {time.perf_counter() - t_stop:.1f}"
               " s", file=log)
+        counters = _counter_delta(eng.obs.counters.snapshot(), counters0)
     gc.unfreeze()
     rounds = np.asarray(eng.n_rounds - rounds0)
     print(f"work: lane waves {int(rounds.max())} (summed over lanes "
@@ -344,7 +355,7 @@ def run_cell(config: dict, traffic: dict, *, seed: int, seconds: float,
               e_live=float(np.mean(strm.live_counts(bounds))) if k else 0.0,
               ingest_s=sum(b - a for a, b in spans["ingest"]) / 1e9)
     if trace:
-        _read_trace(run, eng, prof, spans, w0, w1, n_spans0, rebuilds0,
+        _read_trace(run, eng, prof, spans, w0, w1, n_spans0, counters,
                     reads.reads, waves.waves, log)
         del prof
     del eng
@@ -360,6 +371,7 @@ def run_cell(config: dict, traffic: dict, *, seed: int, seconds: float,
     print(f"samples: batches={run.batches} queries={len(query_ns)} "
           f"events={run.events} window_s={run.window_s} "
           f"answers_checked={checks['answers']} check_s={t_check:.3f} "
+          f"max_ref_dist={checks['max_ref_dist']} "
           f"end_of_stream={end_of_stream}", file=log)
     for name, xs in (("batch", run.batch_s), ("query", run.query_s)):
         if len(xs):
@@ -379,16 +391,26 @@ def _check(strm, sources, sample, final, pos_end, lanes) -> dict:
     else:
         answers += [(pos_end, s, fd[i], fp[i]) for i, s in enumerate(sources)]
     tot = {"dist_wrong": 0, "parent_wrong": 0}
-    wrong = 0
+    wrong, far = 0, 0.0
+    n = strm.edges.n
     for p, s, d, par in answers:
-        got = reference.judge(strm.edges.n, strm.live_arcs(p), s, d, par)
+        arcs = strm.live_arcs(p)
+        ref_dist, _ = reference.bellman_ford(n, *arcs, s)
+        far = max(far, float(ref_dist[torch.isfinite(ref_dist)].max()))
+        got = reference.judge(n, arcs, s, d, par, ref_dist=ref_dist)
         wrong += any(got.values())
         for key, val in got.items():
             tot[key] += val
-    return {**tot, "answers": len(answers), "answers_wrong": wrong}
+    return {**tot, "answers": len(answers), "answers_wrong": wrong,
+            "max_ref_dist": far}
 
 
-def _read_trace(run: Run, eng, prof, spans, w0, w1, n_spans0, rebuilds0,
+def _counter_delta(end: dict, start: dict) -> dict:
+    """Each counter's value in ``end`` less its value in ``start``."""
+    return {k: v - start[k] if k in start else v for k, v in end.items()}
+
+
+def _read_trace(run: Run, eng, prof, spans, w0, w1, n_spans0, counters,
                 reads, waves, log) -> None:
     """Fill the traced run's readings: the program's spans and counters
     in the window, and the device trace with the host spans mapped on."""
@@ -399,7 +421,8 @@ def _read_trace(run: Run, eng, prof, spans, w0, w1, n_spans0, rebuilds0,
                 for k in ("add_epoch", "del_epoch")}
     run.epoch_s = sum(b - a for xs in by_epoch.values()
                       for a, b in xs) / 1e9
-    run.rebuilds = eng.obs.counters.snapshot().get("rebuilds", 0) - rebuilds0
+    run.counters = counters
+    run.rebuilds = counters.get("rebuilds", 0)
     run.waves, run.host_reads = waves, reads
     # the host's clock onto the profiler's (Unix-epoch ns)
     off = time.time_ns() - time.perf_counter_ns()
@@ -423,6 +446,14 @@ def _read_trace(run: Run, eng, prof, spans, w0, w1, n_spans0, rebuilds0,
           f"the window; "
           f"busy_s={dt.busy_s} window_s={dt.window_s}; read in "
           f"{t_read:.1f} s", file=log)
+    tracer = eng.obs.tracer
+    run.phases = phases.window_table(tracer, w0, w1, dt)
+    for line in phases.format_table(run.phases, run.batches):
+        print(line, file=log)
+    clock = phases.clock_check(tracer, w0, w1, dt)
+    print(f"trace: clock offset drift {clock['drift_us']} us", file=log)
+    print("trace: device time starting inside program spans "
+          f"{clock['inside_pct']} %", file=log)
 
 
 # --------------------------------------------------------------- output --
@@ -456,5 +487,8 @@ def result_line(cell: dict, res: dict, trace: bool, device: dict) -> dict:
                                 key=lambda kv: -kv[1])[:10]}
     line["checks"] = {
         **{k: {"value": checks[k], "limit": lim} for k, lim in LIMITS.items()},
-        "answers_checked": {"value": checks["answers"], "limit": 1}}
+        "answers_checked": {"value": checks["answers"], "limit": 1},
+        # the reference raises past it (reference.EXACT_BELOW)
+        "max_ref_dist": {"value": checks["max_ref_dist"],
+                         "limit": reference.EXACT_BELOW - 1}}
     return line

@@ -8,8 +8,9 @@ blocked in them and, on the loops, their passes.  ``window_table`` folds
 the spans that start inside the measured window per name and adds the
 device-idle seconds inside them, mapped with the tracer's own clock offset;
 ``figures`` reduces that table to four per-layer numbers, and
-``clock_check`` says how well the two clocks line up.  The harness does
-not call these yet: ``harness.Run`` has no field for them.
+``clock_check`` says how well the two clocks line up.  The harness's
+traced run keeps the table as ``Run.phases`` and prints it with the clock
+check; ``metrics/`` reads the four numbers from it.
 
     python3 portbench/phases.py --workload kron20.micro4k --seeds 7,8 \
         --seconds 51 --mode trace      # traced runs, phases read out
@@ -148,9 +149,7 @@ def run_one(cell: dict, seed: int, seconds: float, mode: str, obs: bool,
 
     def read_trace(run, eng, prof, spans, w0, w1, *rest):
         real_read(run, eng, prof, spans, w0, w1, *rest)
-        tr = eng.obs.tracer
-        got["table"] = window_table(tr, w0, w1, run.device)
-        got["clock"] = clock_check(tr, w0, w1, run.device)
+        got["clock"] = clock_check(eng.obs.tracer, w0, w1, run.device)
 
     def make_engine(config, n, capacity, sources, device, observability):
         return real_make(config, n, capacity, sources, device,
@@ -170,8 +169,8 @@ def run_one(cell: dict, seed: int, seconds: float, mode: str, obs: bool,
            "batches": run.batches,
            "events_per_s": harness.load_reader("events_per_s")(run),
            "batch_p95_ms": harness.load_reader("batch_p95_ms")(run)}
-    if mode == "trace":
-        table = got["table"]
+    if mode == "trace":      # the harness has printed the table
+        table = run.phases
         out.update(
             figures=figures(table, run.batches), clock=got["clock"],
             table=table, harness_reads=run.host_reads,
@@ -181,12 +180,6 @@ def run_one(cell: dict, seed: int, seconds: float, mode: str, obs: bool,
             program_waves=(_total(table, LOOPS, "iterations")
                            + table.get("mark", {}).get("count", 0)),
             device_idle_pct=harness.load_reader("device_idle_pct")(run))
-        for line in format_table(table, run.batches):
-            print(line, file=log)
-        print(f"trace: clock offset drift {out['clock']['drift_us']} us",
-              file=log)
-        print("trace: device time starting inside program spans "
-              f"{out['clock']['inside_pct']} %", file=log)
     return out
 
 

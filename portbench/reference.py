@@ -4,7 +4,8 @@ The reference works each tree out again from the live arc set alone
 (``Stream.live_arcs``): Bellman-Ford in plain torch, every arc relaxed a
 pass until no distance moves.  It imports nothing of the program and takes
 nothing the program made.  The weights are integers, so float32 path sums
-are exact and ``dist`` is compared exactly.
+are exact below 2^24 and ``dist`` is compared exactly; ``bellman_ford`` in
+float32 raises once a finite distance reaches 2^24, where that stops.
 
 The program keeps one shortest-path tree among possibly many (ties are
 common with integer weights), so its ``parent`` is judged by what a tree
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 NO_PARENT = -1
+EXACT_BELOW = 2 ** 24     # float32 holds every integer below it exactly
 _BIG = torch.iinfo(torch.int64).max
 
 
@@ -30,7 +32,10 @@ def bellman_ford(n: int, src: torch.Tensor, dst: torch.Tensor,
                  dtype: torch.dtype = torch.float32
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist f32[n] with inf, parent i64[n] with -1) from ``source``; the
-    parent is the smallest tail among the arcs that attain ``dist``."""
+    parent is the smallest tail among the arcs that attain ``dist``.  In
+    float32, a ``ValueError`` where a finite distance reaches
+    ``EXACT_BELOW``: past it path sums round and the exact comparison
+    would judge rounded numbers."""
     dist = torch.full((n,), float("inf"), dtype=dtype, device=src.device)
     dist[source] = 0
     wd = w.to(dtype)
@@ -45,6 +50,11 @@ def bellman_ford(n: int, src: torch.Tensor, dst: torch.Tensor,
     parent.scatter_reduce_(0, dst, torch.where(hit, src, _BIG), "amin")
     parent[(parent == _BIG) | ~torch.isfinite(dist)] = NO_PARENT
     parent[source] = NO_PARENT
+    if dtype == torch.float32:
+        far = float(dist[torch.isfinite(dist)].max())
+        if far >= EXACT_BELOW:
+            raise ValueError(f"reference: a distance reaches {far} >= 2^24, "
+                             "where float32 path sums stop being exact")
     return dist.to(torch.float32), parent
 
 

@@ -19,7 +19,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from portbench import harness  # noqa: E402
+from portbench import graphs, harness, phases  # noqa: E402
 from repro_torch.core import stream as port_stream  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -86,6 +86,91 @@ def test_the_traced_run_reports_its_per_layer_metrics(workload):
     assert not any("roofline" in k for k in out["metrics"])
     assert out["metrics"]["waves_per_batch"]["value"] > 0
     assert {"device_ops", "idle_gaps"} <= set(out["breakdown"])
+
+
+# ------------------------------- what the traced run hands the readers --
+PHASE_METRICS = ("plan_ms_per_batch", "layout_ms_per_batch",
+                 "dispatch_us_per_wave", "loop_idle_pct")
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_phase_readers_read_the_runs_phase_table(trace):
+    run_ = run("kron20.micro4k", trace=trace)["run"]
+    figs = (phases.figures(run_.phases, run_.batches) if trace
+            else dict.fromkeys(PHASE_METRICS))
+    for name in PHASE_METRICS:
+        got = harness.load_reader(name)(run_)
+        assert got == figs[name]
+        assert (got is not None and got > 0) is trace, name
+    assert (run_.counters is None) is not trace
+
+
+@pytest.mark.parametrize("workload", ["kron20.micro4k", "kron20.lanes16"])
+def test_run_counters_are_the_windows_part_of_the_programs(monkeypatch,
+                                                          workload):
+    made = []
+    real = harness.make_engine
+    monkeypatch.setattr(harness, "make_engine",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    run_ = run(workload, trace=True)["run"]
+    whole = made[0].obs.counters.snapshot()
+    got = run_.counters
+    # the set-up's layout swap is the program's, not the window's
+    assert got["rebuilds"] == run_.rebuilds < whole["rebuilds"]
+    assert got["add_epochs"] == run_.phases["add_epoch"]["count"]
+    assert got["add_epochs"] < whole["add_epochs"]
+    assert got["queries"] == len(run_.query_s)      # not the final query
+    if run_.lanes > 1:
+        assert got["queries_per_lane"].shape == (run_.lanes,)
+        assert int(got["queries_per_lane"].sum()) == len(run_.query_s)
+
+
+def test_counter_delta_of_scalars_and_vectors():
+    start = {"a": 3, "v": np.array([1, 2])}
+    end = {"a": 5, "v": np.array([4, 2]), "new": 7}
+    got = harness._counter_delta(end, start)
+    assert got["a"] == 2 and got["new"] == 7
+    np.testing.assert_array_equal(got["v"], [3, 0])
+
+
+GRID = '''"""A rows x cols grid, each edge to the right and down, weights and
+arrival order from the seed."""
+import torch
+from portbench.graphs import Edges
+
+
+def generate(cfg, gen):
+    rows, cols, dev = int(cfg["rows"]), int(cfg["cols"]), gen.device
+    ids = torch.arange(rows * cols, device=dev).reshape(rows, cols)
+    u = torch.cat([ids[:, :-1].reshape(-1), ids[:-1, :].reshape(-1)])
+    v = torch.cat([ids[:, 1:].reshape(-1), ids[1:, :].reshape(-1)])
+    order = torch.randperm(len(u), generator=gen, device=dev)
+    w = torch.randint(int(cfg["weight_min"]), int(cfg["weight_max"]) + 1,
+                      (len(u),), generator=gen, device=dev)
+    return Edges(rows * cols, u[order], v[order], w.to(torch.float32))
+'''
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_generator_file_runs_a_cell_with_no_harness_edit(
+        monkeypatch, tmp_path, trace):
+    """A configuration that names ``generators/grid.py``, a graph of long
+    paths, runs to ``correct`` under the cell's own limits."""
+    (tmp_path / "grid.py").write_text(GRID)
+    monkeypatch.setattr(graphs, "GENERATORS_DIR", tmp_path)
+    config, traffic = tiny("urand20.micro4k")
+    del config["scale"], config["edge_factor"]
+    config.update(generator="grid", rows=30, cols=34)
+    res = harness.run_cell(config, traffic, seed=2**31 + 5, seconds=120,
+                           trace=trace, device="cpu")
+    out = line("urand20.micro4k", res, trace)
+    assert res["run"].n == 30 * 34 and res["run"].batches > 20
+    assert out["correct"] and out["failed"] == 0
+    assert out["checks"]["answers_checked"]["value"] >= 7
+    # far ends of a grid: tens of hops at weights up to 255
+    assert 2000 < out["checks"]["max_ref_dist"]["value"] < 2**24
+    if trace:
+        assert set(PHASE_METRICS) <= set(out["metrics"])
 
 
 # ------------------------------------------- faults of the timed path ---

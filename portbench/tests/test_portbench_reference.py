@@ -59,6 +59,24 @@ def line_graph():
     return 4, arcs
 
 
+@pytest.mark.parametrize("far,raises", [
+    (2**24 - 1, False), (2**24, True), (2**24 + 2, True)])
+def test_float32_reference_refuses_distances_past_exactness(far, raises):
+    """A path 0 -> 1 -> 2 whose far end lies just below, at and just above
+    2^24: below it every sum is exact and comes back as such; from it on,
+    float32 sums round and the reference raises."""
+    arcs = (torch.tensor([0, 1]), torch.tensor([1, 2]),
+            torch.tensor([2.0**23, far - 2.0**23]))
+    if raises:
+        with pytest.raises(ValueError, match="2\\^24"):
+            reference.bellman_ford(3, *arcs, 0)
+    else:
+        dist, _ = reference.bellman_ford(3, *arcs, 0)
+        assert dist.tolist() == [0.0, 2.0**23, far]
+    # the control's precision is meant to round: it never raises
+    reference.bellman_ford(3, *arcs, 0, dtype=torch.bfloat16)
+
+
 def test_judge_accepts_either_tied_parent_and_counts_faults():
     n, arcs = line_graph()
     dist = np.array([0, 1, 3, INF], np.float32)

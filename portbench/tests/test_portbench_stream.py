@@ -2,6 +2,7 @@
 made from a seed, checked on the CPU at a tiny scale."""
 from __future__ import annotations
 
+import hashlib
 import sys
 from pathlib import Path
 
@@ -139,3 +140,76 @@ def test_top_sources_are_the_highest_degree_vertices_of_the_base():
     top = harness.top_sources(s, 4)
     assert len(set(top)) == 4
     assert sorted(deg[top], reverse=True) == sorted(deg, reverse=True)[:4]
+
+
+# the edges (u, v, w) and the stream (kind, src, dst, w) of the two GAP
+# generators at scale 9, pinned from the harness before generator files
+# existed: the built-ins keep their draws from the seed, bit for bit
+PINNED = {
+    ("kron", 5): ("48783cc84725b653", "45ca84fcc6206fb4"),
+    ("kron", 2**31 + 7): ("353f312a3b6af446", "3e7347e05dd62d39"),
+    ("urand", 5): ("7cb23a28362f9355", "371ee111c4db8a00"),
+    ("urand", 2**31 + 7): ("a37e74ca41eddf1a", "308f934ea42b5513"),
+}
+
+
+def digest(arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("name,seed", sorted(PINNED))
+def test_built_in_graphs_and_streams_match_their_pinned_digests(name, seed):
+    s = make({"kron": KRON, "urand": URAND}[name], seed)
+    e = s.edges
+    got = (digest([e.u.numpy(), e.v.numpy(), e.w.numpy()]),
+           digest([s.kind, s.src, s.dst, s.w]))
+    assert got == PINNED[name, seed]
+
+
+def _edges(**change) -> graphs.Edges:
+    """A valid 4-vertex graph with one part replaced."""
+    parts = dict(n=4, u=torch.tensor([0, 1, 0]), v=torch.tensor([1, 2, 3]),
+                 w=torch.tensor([1.0, 7.0, 255.0]))
+    parts.update(change)
+    return graphs.Edges(**parts)
+
+
+BROKEN = {
+    "int64": dict(u=torch.tensor([0, 1, 0], dtype=torch.int32)),
+    "float32": dict(w=torch.tensor([1.0, 7.0, 255.0], dtype=torch.float64)),
+    "not one length": dict(w=torch.tensor([1.0, 7.0])),
+    "is on meta": dict(w=torch.empty(3, device="meta")),
+    "0 <= u": dict(u=torch.tensor([-1, 1, 0])),
+    "u < v": dict(u=torch.tensor([0, 2, 0])),
+    "v < n": dict(v=torch.tensor([1, 2, 4])),
+    "no edge twice": dict(u=torch.tensor([0, 1, 0]),
+                          v=torch.tensor([1, 2, 1])),
+    "w integer-valued": dict(w=torch.tensor([1.0, 7.5, 255.0])),
+    "w >= 1": dict(w=torch.tensor([1.0, 0.0, 255.0])),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(BROKEN))
+def test_check_edges_names_the_rule_a_graph_breaks(rule):
+    good = _edges()
+    assert graphs.check_edges(good) is good
+    with pytest.raises(ValueError, match=rule):
+        graphs.check_edges(_edges(**BROKEN[rule]))
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_check_edges_refuses_a_weight_that_is_not_finite(bad):
+    with pytest.raises(ValueError, match="w integer-valued"):
+        graphs.check_edges(_edges(w=torch.tensor([1.0, bad, 255.0])))
+
+
+def test_an_unknown_generator_names_the_built_ins_and_the_files(
+        monkeypatch, tmp_path):
+    (tmp_path / "ring.py").write_text("")
+    monkeypatch.setattr(graphs, "GENERATORS_DIR", tmp_path)
+    with pytest.raises(SystemExit, match=r"'kron', 'urand'.*\['ring'\]"):
+        graphs.generate(dict(URAND, generator="nosuch"),
+                        torch.Generator().manual_seed(1))
