@@ -43,7 +43,7 @@ def readings(config: dict, traffic: dict, seed: int, device: str,
     gen.manual_seed(seed)
     strm = stream.sliding_window(graphs.generate(config, gen), traffic, gen)
     lanes = int(traffic["lanes"])
-    sources = harness.top_sources(strm, lanes)
+    sources = harness.top_sources(strm, lanes, "instance_seed" in config)
     points = answer_points(strm, traffic, batches, harness.CHECK_SAMPLE)
     asked = [(p, sources[i % lanes]) for i, p in enumerate(points[:-1])]
     asked += [(points[-1], s) for s in sources]

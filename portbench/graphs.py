@@ -21,10 +21,10 @@ program to make its inputs.
 Any other ``generator`` name is a file of its own,
 ``generators/<generator>.py``, found by name as ``metrics/<name>.py`` is:
 its ``generate(cfg, gen) -> Edges`` builds the graph on ``gen.device``
-from ``gen`` alone (or reads a graph file kept in the repository, the seed
-setting only the arrival order), and the order it returns is the arrival
-order.  Every graph, built in or from a file, passes ``check_edges``
-before use.
+from ``gen`` alone (or from a seed the configuration fixes, or reads a
+graph file kept in the repository: the run's seed then sets only the
+arrival order), and the order it returns is the arrival order.  Every
+graph, built in or from a file, passes ``check_edges`` before use.
 """
 from __future__ import annotations
 

@@ -192,10 +192,17 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def top_sources(strm: stream_mod.Stream, k: int) -> list[int]:
+def top_sources(strm: stream_mod.Stream, k: int,
+                whole_graph: bool = False) -> list[int]:
     """The ``k`` vertices of highest degree in the base graph (the paper's
-    PageRank stand-in), ties to the smaller id."""
-    src, _, _ = strm.live_arcs(strm.base)
+    PageRank stand-in), ties to the smaller id.  With ``whole_graph``, in
+    the whole graph: for a configuration that fixes its graph
+    (``instance_seed``), whose sources are then fixed with it, the same in
+    every run, as GAP's and DIMACS 9's fixed source lists are a graph's."""
+    if whole_graph:
+        src = torch.cat([strm.edges.u, strm.edges.v])
+    else:
+        src, _, _ = strm.live_arcs(strm.base)
     deg = torch.bincount(src, minlength=strm.edges.n)
     order = torch.sort(deg, descending=True, stable=True).indices
     return [int(s) for s in order[:k].cpu()]
@@ -226,7 +233,7 @@ def run_cell(config: dict, traffic: dict, *, seed: int, seconds: float,
     strm = stream_mod.sliding_window(graphs.generate(config, gen), traffic,
                                      gen)
     n, lanes = strm.edges.n, int(traffic["lanes"])
-    sources = top_sources(strm, lanes)
+    sources = top_sources(strm, lanes, "instance_seed" in config)
     marks.append(("generate", time.perf_counter()))
     if dev.type == "cuda":       # the peak is the program's, from here on
         torch.cuda.reset_peak_memory_stats(dev)

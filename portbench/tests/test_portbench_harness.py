@@ -24,14 +24,17 @@ from repro_torch.core import stream as port_stream  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+TEST_SCALE = 8     # a configuration's CPU-test scale where it sets none
 
 
 def tiny(workload: str) -> tuple[dict, dict]:
-    """A cell's configuration and traffic cut to a CPU test's size: a
-    stream of about 30 batches, which every window runs to its end."""
+    """A cell's configuration and traffic cut to a CPU test's size: the
+    configuration's own ``test_scale`` (``TEST_SCALE`` where it has none)
+    and a stream of some 30 to 40 batches, which every window runs to its
+    end."""
     cell = harness.load_cell(workload)
     config, traffic = dict(cell["config"]), dict(cell["traffic"])
-    config["scale"] = 8
+    config["scale"] = int(config.get("test_scale", TEST_SCALE))
     traffic.update(batch_events=128, block_edges=48, warmup_batches=4,
                    lanes=min(int(traffic["lanes"]), 3))
     return config, traffic
@@ -84,7 +87,9 @@ def test_the_traced_run_reports_its_per_layer_metrics(workload):
                    if m["source"] != "device_trace"}
     assert device_free <= set(out["metrics"])
     assert not any("roofline" in k for k in out["metrics"])
-    assert out["metrics"]["waves_per_batch"]["value"] > 0
+    # what the cell's entries promise: a wave count where it is listed
+    if any(m["name"] == "waves_per_batch" for m in cell["per_layer"]):
+        assert out["metrics"]["waves_per_batch"]["value"] > 0
     assert {"device_ops", "idle_gaps"} <= set(out["breakdown"])
 
 
